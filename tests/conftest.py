@@ -18,3 +18,10 @@ jax.config.update("jax_platforms", "cpu")
 
 assert jax.default_backend() == "cpu"
 assert len(jax.devices()) == 8
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() is false",
+    )
