@@ -5,8 +5,9 @@ Every source in `csrc/` has a plain `extern "C"` launcher and includes no
 PyTorch header, so one `nvcc` call builds it in seconds (a source built
 through `torch.utils.cpp_extension.load`, which compiles PyTorch's
 headers, takes minutes).  Libraries are built at first use into
-`_build/` beside this file, named by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused.
+`_build/` beside this file, named by a hash of the source, the headers
+in `csrc/` and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -41,10 +42,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of `csrc/<name>.cu` is (or will be) built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of `csrc/<name>.cu` is (or will be) built: named
+    by a hash of the source, every header in `csrc/` (sorted by name) and
+    the flags, so that an edited header rebuilds too."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, str]:

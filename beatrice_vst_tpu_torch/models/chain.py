@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..constants import V20RC0, VersionSpec
+from ..device import resolve_device
 from ..ops.pitch_math import transform_pitch
 from . import phone_extractor, pitch_estimator, waveform_generator
 
@@ -43,7 +44,8 @@ class VoiceConverterConfig:
         return cls(spec=spec)
 
 
-def init_state(cfg: VoiceConverterConfig, batch_shape=(), device="cpu"):
+def init_state(cfg: VoiceConverterConfig, batch_shape=(), device="cuda"):
+    device = resolve_device(device)
     return {
         "phone": phone_extractor.init_state(cfg.phone, batch_shape, device),
         "pitch": pitch_estimator.init_state(cfg.pitch, batch_shape, device),

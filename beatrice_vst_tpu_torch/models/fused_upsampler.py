@@ -15,16 +15,18 @@ snake; a final k=3 conv to one channel and tanh give 240 samples at
 `csrc/fused_upsampler.cu` (built with `nvcc`, loaded with `ctypes`) or
 raises.  `launches` counts kernel launches and nothing else.
 
-Bound on an H100 SXM, f32 (the source note in the .cu has the count):
-3.66 MFLOP per stream, so 0.94 GFLOP at B=256, over 67 TFLOP/s of f32
-CUDA-core peak is 14 us; the bytes it must move (22.3 KB per stream of
-inputs, carries and outputs plus 2.2 MB of weights, 7.9 MB at B=256) take
-2.4 us at 3.35 TB/s.  It is bound by operations.
+Bound on an H100 SXM, f32 (`bound_ms`; the source note in the .cu has the
+count): 3.66 MFLOP per stream, so 0.94 GFLOP at B=256, over 67 TFLOP/s of
+f32 CUDA-core peak is 14.0 us; the bytes it must move (22.3 KB per stream
+of inputs, carries and outputs plus 2.2 MB of weights, 7.9 MB at B=256)
+take 2.4 us at 3.35 TB/s.  It is bound by operations.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -36,6 +38,9 @@ CHANNELS = (128, 64, 32, 16)
 HIDDEN = 256
 N_SRC = 9  # 8 harmonics + noise
 KERNEL = 3
+# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 launches = 0  # kernel launches since the count was last set to 0
 
@@ -59,6 +64,29 @@ def flops_per_stream() -> int:
     return 2 * macs
 
 
+def bytes_per_call(b: int) -> int:
+    """Bytes the head must move for b streams: each input read once (frame
+    features, carries, source features, weights) and each output written
+    once (audio, new carries), f32."""
+    h, states, src, stages, final = expected_shapes(b)
+    per_call = [h, *states, *src, *states, (b, OUT_HOP_LENGTH)]
+    per_call += [shape for st in stages for shape in st.values()] + list(final.values())
+    return 4 * sum(math.prod(shape) for shape in per_call)
+
+
+def bound_ms(b: int) -> float:
+    """Least time an H100 SXM could take for b streams: the larger of the
+    operations over f32 peak and the bytes over memory bandwidth."""
+    return max(flops_per_stream() * b / PEAK_F32_FLOPS, bytes_per_call(b) / PEAK_BYTES_PER_S) * 1e3
+
+
+def bound_by(b: int) -> str:
+    """"operations" or "bytes": which of the two sets `bound_ms(b)`."""
+    ops = flops_per_stream() * b / PEAK_F32_FLOPS
+    return "operations" if ops >= bytes_per_call(b) / PEAK_BYTES_PER_S else "bytes"
+
+
+@functools.lru_cache(maxsize=None)
 def expected_shapes(b: int):
     """Shapes of (h, states, src_feats, stage weights, final weights)."""
     states = [(b, 2, c_in) for c_in, *_ in _stage_dims()] + [(b, 2, CHANNELS[-1])]
@@ -82,10 +110,17 @@ def _flat_weights(up_params, final_params):
     return out + [final_params["w"], final_params["b"]]
 
 
+_ALIGN = 16  # the kernel reads frame features, carries and weights as float4
+
+
 def _check(up_params, final_params, h, states, src_feats):
+    """Every argument's shape, dtype and device, and for the kernel its
+    contiguity and alignment.  Returns the 32 tensors in launch order: h,
+    the 5 carries, the 4 source tensors, then `_flat_weights`."""
     if len(up_params) != len(RATES) or len(states) != len(RATES) + 1 \
             or len(src_feats) != len(RATES):
         raise ValueError("fused_upsample takes 4 stages, 5 carries and 4 source tensors")
+    kernel = h.device.type == "cuda"
     b = h.shape[0]
     want_h, want_states, want_src, want_stages, want_final = expected_shapes(b)
     wants = [want_h, *want_states, *want_src]
@@ -101,6 +136,10 @@ def _check(up_params, final_params, h, states, src_feats):
             raise ValueError(f"fused_upsample argument {i}: dtype {t.dtype}, expected float32")
         if t.device != h.device:
             raise ValueError(f"fused_upsample argument {i} is on {t.device}, h on {h.device}")
+        if kernel and not t.is_contiguous():
+            raise ValueError(f"fused_upsample argument {i} is not contiguous")
+        if kernel and t.data_ptr() % _ALIGN:
+            raise ValueError(f"fused_upsample argument {i} is not {_ALIGN}-byte aligned")
     return got
 
 
@@ -144,15 +183,48 @@ class _Args(ctypes.Structure):
     ]
 
 
-def _library():
+def _pack(tensors, audio, new_states) -> _Args:
+    """A new argument block for one launch: the pointers of `_check`'s 32
+    tensors, the audio and the 5 new carries."""
+    ptrs = [t.data_ptr() for t in tensors]
+    args = _Args()
+    args.h = ptrs[0]
+    args.state[:] = ptrs[1:6]
+    args.src[:] = ptrs[6:10]
+    w = ptrs[10:]
+    for i in range(4):
+        (args.conv_w[i], args.conv_b[i], args.src_w[i], args.src_b[i],
+         args.log_alpha[i]) = w[5 * i: 5 * i + 5]
+    args.final_w, args.final_b = w[20], w[21]
+    args.audio = audio.data_ptr()
+    args.new_state[:] = [t.data_ptr() for t in new_states]
+    return args
+
+
+@functools.lru_cache(maxsize=None)
+def _library(source: str = "fused_upsampler"):
+    """csrc/<source>.cu built and loaded, its launcher's types set."""
     from .. import cuda_build
 
-    lib = cuda_build.load_library("fused_upsampler")
-    fn = lib.fused_upsampler_launch
+    lib = cuda_build.load_library(source)
     # (const FusedUpsamplerArgs*, int batch, cudaStream_t)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.fused_upsampler_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.fused_upsampler_launch.restype = ctypes.c_int
+    return lib
+
+
+def occupancy(device=None) -> dict:
+    """How many of the kernel's clusters of 8 blocks the card holds at
+    once, and the kernel's dynamic shared memory per block."""
+    query = _library().fused_upsampler_occupancy
+    query.argtypes = [ctypes.c_void_p, ctypes.c_void_p]  # (int* clusters, int* smem_bytes)
+    query.restype = ctypes.c_int
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = query(ctypes.addressof(clusters), ctypes.addressof(smem))
+    if err != 0:
+        raise RuntimeError(f"fused_upsampler occupancy query failed: CUDA error {err}")
+    return {"max_active_clusters": clusters.value, "smem_bytes": smem.value}
 
 
 def fused_upsample(up_params, final_params, h, states, src_feats):
@@ -160,34 +232,25 @@ def fused_upsample(up_params, final_params, h, states, src_feats):
     `fused_upsample_reference`).  CPU tensors take the plain version; CUDA
     tensors launch the kernel on the current stream, without
     synchronising, or raise."""
+    return _fused_upsample(up_params, final_params, h, states, src_feats)
+
+
+def _fused_upsample(up_params, final_params, h, states, src_feats, source="fused_upsampler"):
+    """`fused_upsample` with the kernel of csrc/<source>.cu (another
+    version of the kernel with the same launcher, for timing against)."""
     global launches
     got = _check(up_params, final_params, h, states, src_feats)
     if h.device.type == "cpu":
         return fused_upsample_reference(up_params, final_params, h, states, src_feats)
     if h.device.type != "cuda":
         raise ValueError(f"fused_upsample runs on cpu or cuda, not {h.device}")
-    for i, t in enumerate(got):
-        if not t.is_contiguous():
-            raise ValueError(f"fused_upsample argument {i} is not contiguous")
-    launch = _library()
     b = h.shape[0]
     audio = torch.empty((b, OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
     new_states = [torch.empty_like(s) for s in states]
-    w = _flat_weights(up_params, final_params)
-    args = _Args()
-    args.h = h.data_ptr()
-    for i in range(5):
-        args.state[i] = states[i].data_ptr()
-        args.new_state[i] = new_states[i].data_ptr()
-    for i in range(4):
-        args.src[i] = src_feats[i].data_ptr()
-        (args.conv_w[i], args.conv_b[i], args.src_w[i], args.src_b[i],
-         args.log_alpha[i]) = (t.data_ptr() for t in w[5 * i: 5 * i + 5])
-    args.final_w, args.final_b = w[-2].data_ptr(), w[-1].data_ptr()
-    args.audio = audio.data_ptr()
+    args = _pack(got, audio, new_states)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = launch(ctypes.addressof(args), b, stream)
+        err = _library(source).fused_upsampler_launch(ctypes.addressof(args), b, stream)
     if err != 0:
         raise RuntimeError(f"fused_upsampler kernel launch failed: CUDA error {err}")
     launches += 1

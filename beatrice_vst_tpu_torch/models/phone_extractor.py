@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from ..constants import VersionSpec
+from ..device import resolve_device
 from ..ops.frontend import MelFrontend
 from . import layers
 
@@ -34,8 +35,9 @@ class PhoneExtractorConfig:
         return MelFrontend(win=self.win, n_mels=self.n_mels)
 
 
-def init_state(cfg: PhoneExtractorConfig, batch_shape=(), device="cpu"):
+def init_state(cfg: PhoneExtractorConfig, batch_shape=(), device="cuda"):
     """Zero streaming state: raw-audio history and per-block conv windows."""
+    device = resolve_device(device)
     return {
         "audio": torch.zeros((*batch_shape, cfg.frontend.history), device=device),
         "blocks": [

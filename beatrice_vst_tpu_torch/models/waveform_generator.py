@@ -17,6 +17,7 @@ import math
 import torch
 
 from ..constants import OUT_HOP_LENGTH, OUT_SAMPLE_RATE, VersionSpec
+from ..device import resolve_device
 from . import layers
 from .fused_upsampler import fused_upsample, fused_upsample_reference
 
@@ -50,8 +51,9 @@ class WaveformGeneratorConfig:
             raise ValueError(f"upsample rates {self.upsample} must multiply to {OUT_HOP_LENGTH}")
 
 
-def init_state(cfg: WaveformGeneratorConfig, batch_shape=(), device="cpu"):
+def init_state(cfg: WaveformGeneratorConfig, batch_shape=(), device="cuda"):
     """Zero streaming state (linear conv windows, phase, noise counter)."""
+    device = resolve_device(device)
     k = cfg.kernel - 1
     u = cfg.up_kernel - 1
     c_ins = [cfg.hidden] + [c for _, c in cfg.upsample]

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 def compute_simple_fraction(ratio: float, limit: int = 1000) -> tuple[int, int]:
     """Best rational approximation with numerator/denominator < limit
@@ -83,9 +85,9 @@ class Resampler:
         """Banded resampling matrix S [hist + in_block, out_block]."""
         return _dense_np(self)
 
-    def init_state(self, batch_shape=(), device="cpu"):
+    def init_state(self, batch_shape=(), device="cuda"):
         return torch.zeros((*batch_shape, self.history_len),
-                           dtype=torch.float32, device=device)
+                           dtype=torch.float32, device=resolve_device(device))
 
     def apply_block(self, x, history):
         """[..., in_block] + [..., hist] -> ([..., out_block], new history)

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..constants import VersionSpec
+from ..device import resolve_device
 
 # field -> (dtype, default); defaults mirror the JAX package's init_controls
 CONTROL_FIELDS = {
@@ -27,8 +28,9 @@ CONTROL_FIELDS = {
 }
 
 
-def init_controls(spec: VersionSpec, capacity: int, device="cpu"):
+def init_controls(spec: VersionSpec, capacity: int, device="cuda"):
     """Default control tensors, one [capacity] tensor per field."""
+    device = resolve_device(device)
     out = {}
     for field, (dtype, default) in CONTROL_FIELDS.items():
         value = spec.pitch_bins - 1 if default is None else default

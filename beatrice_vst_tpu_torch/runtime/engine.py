@@ -67,9 +67,11 @@ class EngineConfig:
         return COMMON_HOP_LENGTH
 
 
-def init_engine_state(cfg: EngineConfig, device="cpu"):
+def init_engine_state(cfg: EngineConfig, device="cuda"):
     """Zero per-stream state: chain carries, resampler histories, gain
-    states, controls and the projected K/V cache."""
+    states, controls and the projected K/V cache, on `device` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     b = (cfg.capacity,)
     wg = cfg.model.wg
     kv_shape = (cfg.capacity, wg.n_blocks, cfg.spec.kv_length, wg.attn_dim)

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each printing one line with its seconds:
   1. env     -- Python, torch and CUDA versions; the card's name and power
                 limit from nvidia-smi.
-  2. build   -- builds every CUDA kernel of the port from csrc/ with nvcc.
-  3. kernel  -- each kernel against its plain PyTorch version on the card,
-                at the shapes the engine gives it (capacity 256), on inputs
-                made with numpy from a fixed seed; max |d|, the kernel's and
-                the plain version's median time (CUDA events) and the bound.
+  2. build   -- builds every CUDA kernel of the port from csrc/ with nvcc,
+                and the first version of the upsampler kernel
+                (csrc/fused_upsampler_v1.cu), one nvcc each, all at once.
+  3. kernel  -- each kernel against its plain PyTorch version on the card
+                at B = 16, 240, 256 (the engine's capacity) and 1024, on inputs
+                made with numpy from a fixed seed: max |d|; the kernel's
+                device time with L2 warm and with L2 cold (128 MiB written
+                before each launch, not timed), from CUDA event pairs around
+                launches enqueued behind a device sleep so that the host
+                never sets the pace; the wrapper's host time per call; the
+                plain version's device time; the bound.  At B = 256 the
+                first version is checked too and timed against this one,
+                warm and cold, in the order v1, v2, v2, v1.
   4. engine  -- the port's StreamEngine at capacity 256 on the card with the
                 klatt8 weights (models_demo/klatt8): 200 ticks of a swept
                 sine plus noise; every output finite, the kernel launched
@@ -40,10 +48,12 @@ TICKS = 200
 WARMUP_TICKS = 20
 COMPARE_TICKS = 20
 KERNEL_TOL = 1e-4  # f32 sums of up to 768 terms in another order
+KERNEL_BATCHES = (16, 240, CAPACITY, 1024)  # 240: 15 clusters of 16 streams, one fewer than 256
+KERNEL_REPS = 50
+PLAIN_REPS = 10
+FLUSH_BYTES = 128 << 20  # written before each cold-L2 launch: 2.5x the 50 MB L2
 ENGINE_TOL = 1e-4  # the same differences, carried through the upsampler state
-# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+V1 = "fused_upsampler_v1"  # the kernel's first version, timed against it
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -59,22 +69,75 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip()
 
 
-def median_ms(fn, reps=30, warmup=5):
-    """Median of per-call device times from CUDA event pairs."""
+def sleep_cycles_per_ms():
+    """Clock cycles of torch.cuda._sleep per millisecond on this card."""
     import torch
 
-    for _ in range(warmup):
+    torch.cuda._sleep(1_000_000)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def host_us(fn, n=200):
+    """Host microseconds per call of fn: wall time over n calls without a
+    synchronise (the calls only enqueue work), after warm-up."""
+    import torch
+
+    for _ in range(5):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def device_ms(fn, n, cycles_per_ms, call_us, before=None, tries=3):
+    """Median device ms of fn, each call between its own pair of CUDA
+    events.  The calls are enqueued behind a torch.cuda._sleep long enough
+    to cover their host time, so the device runs them back to back and the
+    host never sets the pace.  If the enqueue outlasted the sleep (the
+    host was held up), the reading is thrown away and taken again behind a
+    4x longer sleep; raises after `tries` readings.  before() (an L2
+    flush) runs ahead of each pair, outside it."""
+    import torch
+
+    for _ in range(3):
+        if before:
+            before()
+        fn()
+    torch.cuda.synchronize()
+    sleep_ms = 3.0 * n * call_us * 1e-3 + 2.0
+    for _ in range(tries):
+        s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        s1.record()
+        t = time.perf_counter()
+        pairs = []
+        for _ in range(n):
+            if before:
+                before()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        enqueue_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        slept = s0.elapsed_time(s1)
+        if enqueue_ms < slept:
+            return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+        print(f"device_ms: enqueue took {enqueue_ms:.3f} ms, longer than the {slept:.3f} ms "
+              "sleep; reading again", file=sys.stderr, flush=True)
+        sleep_ms *= 4
+    raise AssertionError(f"the host set the pace in {tries} readings")
 
 
 def upsampler_inputs(b, seed, device):
@@ -107,47 +170,98 @@ def upsampler_inputs(b, seed, device):
     return up, final, h, states, src
 
 
+def max_abs_diffs(got, want):
+    """max |d| of the audio and of each of the 5 new carries."""
+    (audio, states), (want_audio, want_states) = got, want
+    return [float((audio - want_audio).abs().max())] + [
+        float((g - w).abs().max()) for g, w in zip(states, want_states)]
+
+
 def kernel_phase(device):
-    """Kernel vs plain at the engine's capacity; returns the kernels-line
-    entry (without launches, which the engine phase counts)."""
+    """The kernel against its plain version at B in KERNEL_BATCHES: max |d|
+    of audio and the 5 carries, device ms with L2 warm and cold, the
+    wrapper's host us per call, the plain version's device ms and the
+    bound.  At the engine's capacity the first version (V1) is checked as
+    well and timed against this one in the order v1, v2, v2, v1.  Returns
+    the kernels-line entry (without launches, which the engine phase
+    counts)."""
     import torch
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
     t0 = time.perf_counter()
-    up, final, h, states, src = upsampler_inputs(CAPACITY, 0, device)
-    args = (up, final, h, states, src)
-    audio, new_states = FU.fused_upsample(*args)
-    torch.cuda.synchronize()
-    want_audio, want_states = FU.fused_upsample_reference(*args)
-    diffs = [float((audio - want_audio).abs().max())]
-    diffs += [float((g - w).abs().max()) for g, w in zip(new_states, want_states)]
-    err = max(diffs)
-    if not np.isfinite(err) or err > KERNEL_TOL:
-        raise AssertionError(f"fused_upsampler vs plain: max|d| {diffs} > {KERNEL_TOL}")
-    kernel_ms = median_ms(lambda: FU.fused_upsample(*args))
-    plain_ms = median_ms(lambda: FU.fused_upsample_reference(*args))
-    flops = FU.flops_per_stream() * CAPACITY
-    weights = [t for p in up for t in (p["conv"]["w"], p["conv"]["b"], p["src"]["w"],
-                                       p["src"]["b"], p["snake"]["log_alpha"])]
-    weights += [final["w"], final["b"]]
-    nbytes = sum(t.numel() * 4 for t in [h, *states, *src, *weights, audio, *new_states])
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    cycles_per_ms = sleep_cycles_per_ms()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    occupancy = FU.occupancy(device)
+    by_batch = []
+    for b in KERNEL_BATCHES:
+        up, final, h, states, src = upsampler_inputs(b, 0, device)
+        args = (up, final, h, states, src)
+        want = FU.fused_upsample_reference(*args)
+        diffs = max_abs_diffs(FU.fused_upsample(*args), want)
+        err = max(diffs)
+        if not np.isfinite(err) or err > KERNEL_TOL:
+            raise AssertionError(f"fused_upsampler vs plain at B={b}: max|d| {diffs} > {KERNEL_TOL}")
+
+        def kernel():
+            FU.fused_upsample(*args)
+
+        def plain():
+            FU.fused_upsample_reference(*args)
+
+        call_us = host_us(kernel)
+        warm = device_ms(kernel, KERNEL_REPS, cycles_per_ms, call_us)
+        cold = device_ms(kernel, KERNEL_REPS, cycles_per_ms, call_us, before=flush.zero_)
+        plain_ms = device_ms(plain, PLAIN_REPS, cycles_per_ms, host_us(plain, n=20))
+        row = {"batch": b, "max_abs_diff": err, "per_output_max_abs_diff": diffs,
+               "ms": warm, "cold_l2_ms": cold, "host_us_per_call": call_us,
+               "plain_ms": plain_ms, "bound_ms": FU.bound_ms(b), "bound_by": FU.bound_by(b),
+               "share_of_bound": FU.bound_ms(b) / warm,
+               "flops": FU.flops_per_stream() * b, "bytes": FU.bytes_per_call(b)}
+        if b == CAPACITY:
+            def v1():
+                return FU._fused_upsample(*args, source=V1)
+
+            v1_diffs = max_abs_diffs(v1(), want)
+            if not np.isfinite(max(v1_diffs)) or max(v1_diffs) > KERNEL_TOL:
+                raise AssertionError(f"{V1} vs plain at B={b}: max|d| {v1_diffs} > {KERNEL_TOL}")
+            v1_us = host_us(v1)
+            # [warm, cold] per reading, in the order v1, v2, v2, v1
+            same_call = {V1: [], "fused_upsampler": []}
+            for name, fn, us in ((V1, v1, v1_us), ("fused_upsampler", kernel, call_us),
+                                 ("fused_upsampler", kernel, call_us), (V1, v1, v1_us)):
+                same_call[name].append([
+                    device_ms(fn, KERNEL_REPS, cycles_per_ms, us),
+                    device_ms(fn, KERNEL_REPS, cycles_per_ms, us, before=flush.zero_)])
+            row.update(v1_max_abs_diff=max(v1_diffs), v1_host_us_per_call=v1_us,
+                       same_call_ms_warm_cold=same_call)
+        by_batch.append(row)
+    del flush
+    at = next(r for r in by_batch if r["batch"] == CAPACITY)
     entry = {
         "name": "fused_upsampler",
         "route": "cuda",
         "source": "beatrice_vst_tpu_torch/csrc/fused_upsampler.cu",
         "replaces": "beatrice_vst_tpu/models/pallas_upsampler.py:203",
-        "max_abs_err": err,
-        "max_abs_diff": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "max_abs_err": at["max_abs_diff"],
+        "max_abs_diff": at["max_abs_diff"],
+        "ms": at["ms"],
+        "cold_l2_ms": at["cold_l2_ms"],
+        "host_us_per_call": at["host_us_per_call"],
+        # the first version on the same inputs in the same run, timed the
+        # same way (mean of its two readings)
+        "parent": f"beatrice_vst_tpu_torch/csrc/{V1}.cu",
+        "parent_ms": float(np.mean([r[0] for r in at["same_call_ms_warm_cold"][V1]])),
+        "parent_cold_l2_ms": float(np.mean([r[1] for r in at["same_call_ms_warm_cold"][V1]])),
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this fused head
+        "by_batch": [{k: r[k] for k in ("batch", "ms", "cold_l2_ms", "host_us_per_call",
+                                        "plain_ms", "bound_ms", "max_abs_diff")}
+                     for r in by_batch],
     }
-    log("kernel", t0, batch=CAPACITY, flops=flops, bytes=nbytes, max_abs_diff=err,
-        per_output_max_abs_diff=diffs, kernel_ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=entry["bound_ms"], bound_by=entry["bound_by"])
+    log("kernel", t0, tol=KERNEL_TOL, occupancy=occupancy, reps=KERNEL_REPS,
+        flush_mib=FLUSH_BYTES / 2**20, by_batch=by_batch)
     return entry
 
 
@@ -284,7 +398,9 @@ def profile_phase(device, out_dir, ticks=20):
         json.dump({"capacity": CAPACITY, "ticks": ticks, "span_ms_per_tick": span_ms,
                    "device_busy_ms_per_tick": busy_ms,
                    "host_ms_per_tick": float(np.median(host)), "kernels": table}, f, indent=1)
+    upsampler_ms = sum(ms for k, ms, _ in rows if "fused_upsampler" in k)
     log("profile", t0, capacity=CAPACITY, ticks=ticks, span_ms_per_tick=span_ms,
+        upsampler_kernel_ms_per_tick=upsampler_ms,
         device_busy_ms_per_tick=busy_ms, idle_share=1.0 - busy_ms / span_ms,
         median_host_ms_per_tick=float(np.median(host)),
         device_launches_per_tick=sum(r[2] for r in rows), top=table[:12])
@@ -310,8 +426,8 @@ def main() -> int:
     from beatrice_vst_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["fused_upsampler"])
-    ptxas = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln or "smem" in ln]
+    logs = cuda_build.build(["fused_upsampler", V1])
+    ptxas = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
              for name, text in logs.items()}
     log("build", t0, built=sorted(logs), ptxas=ptxas)
 

@@ -48,7 +48,9 @@ def _upsampler_args(b, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 3, 16, 256])
+# 15 and 17: a tile's ragged edge; 1, 3 and 100: partial clusters; 1000:
+# more clusters than the card holds at once
+@pytest.mark.parametrize("b", [1, 3, 15, 16, 17, 100, 256, 1000])
 def test_fused_upsampler_kernel_matches_plain(cuda_device, b):
     args = _upsampler_args(b, b, cuda_device)
     before = FU.launches
@@ -60,6 +62,38 @@ def test_fused_upsampler_kernel_matches_plain(cuda_device, b):
     assert len(new_states) == 5
     for got, want in zip(new_states, want_states):
         torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_fused_upsampler_is_deterministic(cuda_device):
+    # no atomics and sums in a fixed order: two launches agree bit for bit
+    args = _upsampler_args(100, 7, cuda_device)
+    first = FU.fused_upsample(*args)
+    second = FU.fused_upsample(*args)
+    torch.cuda.synchronize()
+    for got, want in zip([second[0], *second[1]], [first[0], *first[1]]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_upsampler_interleaved_parameter_sets(cuda_device):
+    # two parameter sets and batches, launched in turn without a synchronise
+    first, second = _upsampler_args(16, 1, cuda_device), _upsampler_args(33, 2, cuda_device)
+    outs = [FU.fused_upsample(*args) for args in (first, second, first, second)]
+    torch.cuda.synchronize()
+    for args, (audio, new_states) in zip((first, second, first, second), outs):
+        want_audio, want_states = FU.fused_upsample_reference(*args)
+        torch.testing.assert_close(audio, want_audio, rtol=0, atol=TOL)
+        for got, want in zip(new_states, want_states):
+            torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_fused_upsampler_rejects_misaligned(cuda_device):
+    up, final, h, states, src = _upsampler_args(4, 0, cuda_device)
+    h = torch.empty(h.numel() + 1, device=cuda_device)[1:].view(h.shape).copy_(h)
+    with pytest.raises(ValueError, match="aligned"):
+        FU.fused_upsample(up, final, h, states, src)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,13 @@ from beatrice_vst_tpu.runtime.engine import StreamEngine as JStreamEngine
 from beatrice_vst_tpu_torch.constants import V20RC0
 from beatrice_vst_tpu_torch.errors import BeatriceError
 from beatrice_vst_tpu_torch.models.io import load_weights
-from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
+from beatrice_vst_tpu_torch.models import chain as PC
+from beatrice_vst_tpu_torch.models import phone_extractor as PPE
+from beatrice_vst_tpu_torch.models import pitch_estimator as PPI
+from beatrice_vst_tpu_torch.models import waveform_generator as PW
+from beatrice_vst_tpu_torch.ops.resample import input_resampler_48k_to_16k
+from beatrice_vst_tpu_torch.runtime.controls import init_controls
+from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine, init_engine_state
 from beatrice_vst_tpu_torch.speakers import bank as bank_mod
 
 torch.set_num_threads(1)
@@ -131,3 +137,37 @@ def test_admission_resets_a_recycled_slot(klatt8_port):
     # a leaked context would differ by orders of magnitude more than the
     # f32 rounding two engines' matmuls may differ by
     torch.testing.assert_close(used.tick(x), fresh.tick(x), rtol=0, atol=1e-6)
+
+
+_CFG = EngineConfig.realtime(2)
+# every public init function of the port, called without a device
+_INITS = {
+    "init_engine_state": lambda **kw: init_engine_state(_CFG, **kw),
+    "init_controls": lambda **kw: init_controls(_CFG.spec, 2, **kw),
+    "chain.init_state": lambda **kw: PC.init_state(_CFG.model, (2,), **kw),
+    "waveform_generator.init_state": lambda **kw: PW.init_state(_CFG.model.wg, (2,), **kw),
+    "phone_extractor.init_state": lambda **kw: PPE.init_state(_CFG.model.phone, (2,), **kw),
+    "pitch_estimator.init_state": lambda **kw: PPI.init_state(_CFG.model.pitch, (2,), **kw),
+    "Resampler.init_state": lambda **kw: input_resampler_48k_to_16k().init_state((2,), **kw),
+}
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for item in items for t in _tensors(item)]
+
+
+@pytest.mark.parametrize("name", sorted(_INITS))
+def test_init_functions_default_to_cuda_and_raise_without_it(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _INITS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_INITS))
+def test_init_functions_run_on_the_cpu_when_asked(name):
+    tensors = _tensors(_INITS[name](device="cpu"))
+    assert tensors and all(t.device.type == "cpu" for t in tensors)

@@ -61,7 +61,7 @@ def test_resampler_blocks(make):
     assert pr.history_len == jr.history_len
     rng = np.random.default_rng(5)
     sj = jr.init_state((3,))
-    sp = pr.init_state((3,))
+    sp = pr.init_state((3,), device="cpu")
     for _ in range(3):
         x = rng.standard_normal((3, jr.in_block)).astype(np.float32)
         yj, sj = jr.apply_block(jnp.asarray(x), sj)

@@ -17,6 +17,7 @@ from beatrice_vst_tpu.constants import V20RC0
 from beatrice_vst_tpu.models import waveform_generator as JW
 from beatrice_vst_tpu.models.chain import VoiceConverterConfig
 from beatrice_vst_tpu.models.pallas_upsampler import fused_upsample as pallas_fused_upsample
+from beatrice_vst_tpu_torch import cuda_build
 from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 from beatrice_vst_tpu_torch.models.io import params_from_numpy
 
@@ -101,3 +102,64 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
 def test_flop_count_matches_the_plan():
     # 4 stage convs + source projections + final conv, per stream
     assert FU.flops_per_stream() == 2 * 1_830_144
+
+
+def test_bound_matches_the_hand_count():
+    # per stream: h 256, carries 2 x (256+128+64+32+16) in and out, source
+    # features (4+20+80+240) x 9, audio 240 floats
+    per_stream = 4 * (256 + 2 * 2 * 496 + 344 * 9 + 240)
+    assert per_stream == 22_304
+    weights = 4 * (3 * 256 * 512 + 3 * 128 * 320 + 3 * 64 * 128 + 3 * 32 * 48  # convs
+                   + (512 + 320 + 128 + 48)  # conv biases
+                   + 9 * 240 + 240 + 240  # source weights and biases, snake alphas
+                   + 3 * 16 + 1)  # final conv
+    assert weights == 2_195_908
+    for b in (1, 16, 256, 1024):
+        assert FU.bytes_per_call(b) == per_stream * b + weights
+    assert FU.flops_per_stream() == 3_660_288  # 3.66 MFLOP
+    # 0.937 GFLOP over 67 TFLOP/s at B=256: 14.0 us, above 7.9 MB over 3.35 TB/s (2.4 us)
+    assert FU.bound_ms(256) == pytest.approx(0.013986, rel=1e-4)
+    assert FU.bound_by(256) == "operations"
+    assert FU.bytes_per_call(256) / FU.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.00236, rel=1e-2)
+    assert FU.bound_by(1) == "bytes"  # one stream still reads all 2.2 MB of weights
+
+
+def test_build_path_follows_source_headers_and_flags(tmp_path, monkeypatch):
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    first = cuda_build.library_path("k")
+    assert cuda_build.library_path("k") == first
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    second = cuda_build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = cuda_build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n// edited\n')
+    fourth = cuda_build.library_path("k")
+    assert fourth not in (first, second, third)
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", (*cuda_build.NVCC_FLAGS, "-DX"))
+    assert cuda_build.library_path("k") != fourth
+
+
+def test_launch_arguments_are_packed_in_launch_order():
+    params, h, states, src = _inputs(2, seed=3)
+    up, final, th, ts, tsrc = _torch_args(params, h, states, src)
+    got = FU._check(up, final, th, ts, tsrc)
+    audio = torch.empty(2, 240)
+    new_states = [torch.empty_like(s) for s in ts]
+    args = FU._pack(got, audio, new_states)
+    assert args.h == th.data_ptr()
+    assert list(args.state) == [s.data_ptr() for s in ts]
+    assert list(args.src) == [s.data_ptr() for s in tsrc]
+    for i, p in enumerate(up):
+        assert (args.conv_w[i], args.conv_b[i], args.src_w[i], args.src_b[i],
+                args.log_alpha[i]) == (p["conv"]["w"].data_ptr(), p["conv"]["b"].data_ptr(),
+                                       p["src"]["w"].data_ptr(), p["src"]["b"].data_ptr(),
+                                       p["snake"]["log_alpha"].data_ptr())
+    assert (args.final_w, args.final_b) == (final["w"].data_ptr(), final["b"].data_ptr())
+    assert args.audio == audio.data_ptr()
+    assert list(args.new_state) == [s.data_ptr() for s in new_states]
+    # each call packs its own block
+    assert FU._pack(got, audio, new_states) is not args

@@ -140,7 +140,7 @@ def test_waveform_generator(params):
 def test_waveform_generator_rejects_chunks(params):
     _, pp = params
     rng = np.random.default_rng(3)
-    ps = PW.init_state(PCFG.wg, (1,))
+    ps = PW.init_state(PCFG.wg, (1,), device="cpu")
     kv = PW.project_kv(pp["wg"], torch.zeros(1, 384, 128))
     with pytest.raises(ValueError, match="one frame"):
         PW.apply(pp["wg"], PCFG.wg, torch.zeros(1, 2, 128),
@@ -172,7 +172,7 @@ def test_chain_frames(params):
     cond_p = {k: _t(v) for k, v in cond_np.items()}
     cond_p["kv_cache"] = PW.project_kv(pp["wg"], torch.from_numpy(kv))
     js = JC.init_state(JCFG, (b,))
-    ps = PC.init_state(PCFG, (b,))
+    ps = PC.init_state(PCFG, (b,), device="cpu")
     n = np.arange(3 * 160)
     audio = (0.3 * np.sin(2 * np.pi * 220 * n / 16000)[None]
              + 0.02 * rng.standard_normal((b, n.size))).astype(np.float32)
