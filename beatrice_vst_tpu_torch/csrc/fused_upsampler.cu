@@ -1,4 +1,5 @@
-// Fused vocoder upsampler head, one 10 ms frame (T = 1) per stream, f32.
+// Fused vocoder upsampler head, one 10 ms frame (T = 1) per stream, in two
+// forms: f32, and bf16 storage with f32 arithmetic.
 // Version 2: tiles of 16 streams over thread-block clusters of 8 CTAs.
 //
 // Replaces the TPU kernel beatrice_vst_tpu/models/pallas_upsampler.py:203
@@ -22,6 +23,21 @@
 //   bytes: 22.3 KB per stream (h, carries in and out, source features,
 //     audio) plus 2.2 MB of weights -> 7.9 MB at B = 256 -> 2.4 us.
 // So it is bound by operations on the f32 CUDA cores.
+//
+// The bf16 form (fused_upsampler_bf16_launch) computes what the TPU kernel
+// computes with compute_dtype = bfloat16: frame features, carries and the
+// conv, source and final-conv weights are read as bf16; source features,
+// biases and snake alphas as f32.  Each value is converted to f32 and the
+// products are f32 FFMA: a product of two bf16 values is exact in f32, so
+// this equals a bf16 tensor-core product with f32 accumulation up to the
+// order of the sums.  Source features are rounded to bf16 where they are
+// read, and every stage's output is rounded to bf16 where it is stored for
+// the next stage (and for the carries); audio is tanh in f32.  Its bound:
+// the same operations over 989 TFLOP/s of dense bf16 tensor-core peak,
+// 0.95 us at B = 256, and 5.66 MB moved at B = 256 (17.8 KB per stream:
+// bf16 frame features and carries, f32 source features and audio; 1.1 MB
+// of bf16 weights and f32 biases), 1.69 us: bound by bytes.  Shared memory keeps f32 (bf16-valued) activations, so
+// the tiling is the f32 form's; the weights' L2 traffic halves.
 //
 // Design.  Version 1 ran one block per stream: every block read all 2.2 MB
 // of weights through L2 (560 MB of L2 traffic per call at B = 256) and
@@ -58,24 +74,29 @@
 // batches) and TMA (the weight slices are read once each, by __ldg).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
 
+// T: the storage type of frame features, carries and matmul weights
+// (float or bf16); the rest is f32 in both forms.
+template <typename T>
 struct FusedUpsamplerArgs {
-  const float* h;             // [B, 1, 256]
-  const float* state[5];      // [B,2,256] [B,2,128] [B,2,64] [B,2,32] [B,2,16]
+  const T* h;                 // [B, 1, 256]
+  const T* state[5];          // [B,2,256] [B,2,128] [B,2,64] [B,2,32] [B,2,16]
   const float* src[4];        // [B,4,9] [B,20,9] [B,80,9] [B,240,9]
-  const float* conv_w[4];     // [3,256,512] [3,128,320] [3,64,128] [3,32,48]
+  const T* conv_w[4];         // [3,256,512] [3,128,320] [3,64,128] [3,32,48]
   const float* conv_b[4];     // [512] [320] [128] [48]
-  const float* src_w[4];      // [9, C_out]
+  const T* src_w[4];          // [9, C_out]
   const float* src_b[4];      // [C_out]
   const float* log_alpha[4];  // [C_out]
-  const float* final_w;       // [3, 16, 1]
+  const T* final_w;           // [3, 16, 1]
   const float* final_b;       // [1]
   float* audio;               // [B, 240]
-  float* new_state[5];        // shapes of state
+  T* new_state[5];            // shapes of state
 };
 
 namespace {
@@ -162,13 +183,56 @@ __device__ __forceinline__ void ldg(float* dst, const float* p) {
   for (int i = 0; i < N; ++i) dst[i] = f[i];
 }
 
+// The float of the bf16 in the low (hi = false) or high half of a word.
+__device__ __forceinline__ float bf16_half(unsigned w, bool hi) {
+  return __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16));
+}
+
+// N bf16 values (p aligned to 2 N bytes) from global memory, as floats.
+template <int N>
+__device__ __forceinline__ void ldg(float* dst, const bf16* p) {
+  if constexpr (N == 1) {
+    dst[0] = bf16_half(__ldg(reinterpret_cast<const unsigned short*>(p)), false);
+  } else if constexpr (N == 2) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+    dst[0] = bf16_half(w, false);
+    dst[1] = bf16_half(w, true);
+  } else {
+    static_assert(N == 4, "bf16 loads of 1, 2 or 4 values");
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    dst[0] = bf16_half(w.x, false);
+    dst[1] = bf16_half(w.x, true);
+    dst[2] = bf16_half(w.y, false);
+    dst[3] = bf16_half(w.y, true);
+  }
+}
+
+// One value from global memory, as a float.
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const bf16* p) {
+  float v;
+  ldg<1>(&v, p);
+  return v;
+}
+
+// x rounded to the storage type T and back (the bf16 form's rounding of a
+// value that the next stage reads as bf16); x itself for float.
+template <typename T> __device__ __forceinline__ float rnd(float x);
+template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
+template <> __device__ __forceinline__ float rnd<bf16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void put(float* g, float v) { *g = v; }
+__device__ __forceinline__ void put(bf16* g, float v) { *g = __float2bfloat16_rn(v); }
+
 // Rows [0, NROWS) of a [B, NROWS, C] tensor for streams b0 .. b0+NSTR-1
 // into act[ch][row0 + row][stream] (ROWS rows a channel); streams past
 // `batch` read as zeros.  Each thread issues all its loads before its
 // stores, so their latencies overlap.
-template <int C, int ROWS, int NSTR, int NROWS>
-__device__ __forceinline__ void load_act(float* act, const float* __restrict__ g, int row0,
-                                         int b0, int batch) {
+template <int C, int ROWS, int NSTR, int NROWS, typename T>
+__device__ __forceinline__ void load_act(float* act, const T* __restrict__ g, int row0, int b0,
+                                         int batch) {
   constexpr int kItems = NSTR * NROWS * (C / 4);
   constexpr int kPer = (kItems + kThreads - 1) / kThreads;
   float v[kPer][4];
@@ -213,15 +277,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // The new carry: rows row0, row0 + 1 of act[ch][row][stream] for streams
 // s0 .. s0+ns-1 (stream s is b0 + s) into g [B, 2, C]; streams past
 // `batch` are skipped.
-template <int C, int ROWS, int NSTR>
-__device__ __forceinline__ void store_carry(float* __restrict__ g, const float* act, int row0,
-                                            int s0, int ns, int b0, int batch) {
+template <int C, int ROWS, int NSTR, typename T>
+__device__ __forceinline__ void store_carry(T* __restrict__ g, const float* act, int row0, int s0,
+                                            int ns, int b0, int batch) {
   for (int i = threadIdx.x; i < ns * 2 * C; i += kThreads) {
     const int c = i % C;
     const int row = (i / C) % 2;
     const int s = s0 + i / (2 * C);
     if (b0 + s < batch)
-      g[((size_t)(b0 + s) * 2 + row) * C + c] = act[(c * ROWS + row0 + row) * NSTR + s];
+      put(g + ((size_t)(b0 + s) * 2 + row) * C + c, act[(c * ROWS + row0 + row) * NSTR + s]);
   }
 }
 
@@ -230,9 +294,10 @@ __device__ __forceinline__ void store_carry(float* __restrict__ g, const float* 
 // act[ci][t0 + t + j][s0 + s] * w[j][ci][col + c].  Per channel the TM + 2
 // activation rows are loaded once and each weight vector serves NS * TM
 // rows; the next channel's weights are loaded one channel ahead.
-template <int CIN, int ROWS, int NSTR, int NTOT, int NS, int TM, int TN, int KSTEP>
+template <int CIN, int ROWS, int NSTR, int NTOT, int NS, int TM, int TN, int KSTEP,
+          typename T>
 __device__ __forceinline__ void conv_acc(float (&acc)[TM][NS][TN], const float* act,
-                                         const float* __restrict__ w, int kg, int s0, int t0,
+                                         const T* __restrict__ w, int kg, int s0, int t0,
                                          int col) {
 #pragma unroll
   for (int t = 0; t < TM; ++t)
@@ -295,11 +360,13 @@ __device__ __forceinline__ void store_partial(float* part, const float (&acc)[TM
 // store(s, row, c, value) with s the stream within [b0, b0 + MTOT / T_IN),
 // row = t * RATE + rho the output row and c the channel.  Neighbouring
 // threads take neighbouring rows m, so that stores into [channel][row]
-// [stream] buffers spread over banks.
-template <int KG, int MTOT, int NLOC, int T_IN, int RATE, int COUT, int UNROLL, typename Store>
+// [stream] buffers spread over banks.  T is the storage type: source
+// features and outputs are rounded to it.
+template <int KG, int MTOT, int NLOC, int T_IN, int RATE, int COUT, int UNROLL, typename T,
+          typename Store>
 __device__ __forceinline__ void epilogue(const float* part, int col_base,
                                          const float* __restrict__ bias, const float* src,
-                                         const float* __restrict__ sw,
+                                         const T* __restrict__ sw,
                                          const float* __restrict__ sb,
                                          const float* __restrict__ log_alpha, int b0, int batch,
                                          Store store) {
@@ -328,11 +395,11 @@ __device__ __forceinline__ void epilogue(const float* part, int col_base,
       if (b0 + s < batch) {
         const float* f = src + (s * T_IN * RATE + row) * kSrc;
 #pragma unroll
-        for (int k = 0; k < kSrc; ++k) proj = fmaf(f[k], __ldg(sw + k * COUT + c), proj);
+        for (int k = 0; k < kSrc; ++k) proj = fmaf(rnd<T>(f[k]), ld1(sw + k * COUT + c), proj);
       }
       float a_pi, k16;
       snake_constants(__ldg(log_alpha + c), a_pi, k16);
-      v[u] = snake((y + __ldg(bias + ng)) + (proj + __ldg(sb + c)), a_pi, k16);
+      v[u] = rnd<T>(snake((y + __ldg(bias + ng)) + (proj + __ldg(sb + c)), a_pi, k16));
       where[u][0] = s;
       where[u][1] = row;
       where[u][2] = c;
@@ -346,11 +413,12 @@ __device__ __forceinline__ void epilogue(const float* part, int col_base,
 // column and walks rows, so the column's constants (9 source weights,
 // bias, snake constants) are loaded once: for the stages with many rows.
 // Threads past the last whole group of columns take no outputs.
-template <int KG, int MTOT, int NLOC, int T_IN, int RATE, int COUT, int UNROLL, typename Store>
+template <int KG, int MTOT, int NLOC, int T_IN, int RATE, int COUT, int UNROLL, typename T,
+          typename Store>
 __device__ __forceinline__ void epilogue_by_column(const float* part,
                                                    const float* __restrict__ bias,
                                                    const float* src,
-                                                   const float* __restrict__ sw,
+                                                   const T* __restrict__ sw,
                                                    const float* __restrict__ sb,
                                                    const float* __restrict__ log_alpha, int b0,
                                                    int batch, Store store) {
@@ -363,7 +431,7 @@ __device__ __forceinline__ void epilogue_by_column(const float* part,
   const int c = n - rho * COUT;
   float swc[kSrc];
 #pragma unroll
-  for (int k = 0; k < kSrc; ++k) swc[k] = __ldg(sw + k * COUT + c);
+  for (int k = 0; k < kSrc; ++k) swc[k] = ld1(sw + k * COUT + c);
   const float bn = __ldg(bias + n), sbc = __ldg(sb + c);
   float a_pi, k16;
   snake_constants(__ldg(log_alpha + c), a_pi, k16);
@@ -382,9 +450,9 @@ __device__ __forceinline__ void epilogue_by_column(const float* part,
         if (b0 + s < batch) {
           const float* f = src + (s * T_IN * RATE + row) * kSrc;
 #pragma unroll
-          for (int k = 0; k < kSrc; ++k) proj = fmaf(f[k], swc[k], proj);
+          for (int k = 0; k < kSrc; ++k) proj = fmaf(rnd<T>(f[k]), swc[k], proj);
         }
-        v[u] = snake((y + bn) + (proj + sbc), a_pi, k16);
+        v[u] = rnd<T>(snake((y + bn) + (proj + sbc), a_pi, k16));
       }
     }
 #pragma unroll
@@ -398,8 +466,9 @@ __device__ __forceinline__ void epilogue_by_column(const float* part,
   }
 }
 
+template <typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
-fused_upsampler_kernel(const FusedUpsamplerArgs p, int batch) {
+fused_upsampler_kernel(const FusedUpsamplerArgs<T> p, int batch) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* const part = smem;
@@ -519,49 +588,71 @@ fused_upsampler_kernel(const FusedUpsamplerArgs p, int batch) {
     for (int j = 0; j < 3; ++j)
 #pragma unroll
       for (int ci = 0; ci < 16; ++ci)
-        acc = fmaf(seqf[(ci * 243 + u + j) * kOwn + s], __ldg(p.final_w + j * 16 + ci), acc);
+        acc = fmaf(seqf[(ci * 243 + u + j) * kOwn + s], ld1(p.final_w + j * 16 + ci), acc);
     p.audio[(size_t)(own0 + s) * kOut + u] = tanhf(acc + fb);
   }
 }
 
 // Allows the kernel its dynamic shared memory on the current device (once
-// per device).
+// per device and form).
+template <typename T>
 cudaError_t configure() {
   static int done[64] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(fused_upsampler_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+  err = cudaFuncSetAttribute(fused_upsampler_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = 1;
   return err;
 }
 
-}  // namespace
-
-// Launches the kernel for `batch` streams on `stream`: ceil(batch / 16)
-// clusters of 8 blocks.  Returns cudaGetLastError() (0 = launched).
-extern "C" int fused_upsampler_launch(const FusedUpsamplerArgs* args, int batch, void* stream) {
+template <typename T>
+int launch(const FusedUpsamplerArgs<T>* args, int batch, void* stream) {
   if (batch <= 0) return 0;
-  const cudaError_t err = configure();
+  const cudaError_t err = configure<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int clusters = (batch + kTile - 1) / kTile;
-  fused_upsampler_kernel<<<clusters * kCluster, kThreads, kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(*args, batch);
+  fused_upsampler_kernel<T><<<clusters * kCluster, kThreads, kSmemBytes,
+                              static_cast<cudaStream_t>(stream)>>>(*args, batch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many of the kernel's clusters the current device holds at once, and
-// its dynamic shared memory per block; returns a CUDA error code.
-extern "C" int fused_upsampler_occupancy(int* max_active_clusters, int* smem_bytes) {
-  cudaError_t err = configure();
+template <typename T>
+int occupancy(int* max_active_clusters, int* smem_bytes) {
+  cudaError_t err = configure<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmemBytes;
-  err = cudaOccupancyMaxActiveClusters(max_active_clusters, fused_upsampler_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(max_active_clusters, fused_upsampler_kernel<T>, &cfg);
   *smem_bytes = kSmemBytes;
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Launch the f32 or the bf16 form for `batch` streams on `stream`:
+// ceil(batch / 16) clusters of 8 blocks.  Return cudaGetLastError()
+// (0 = launched).
+extern "C" int fused_upsampler_launch(const FusedUpsamplerArgs<float>* args, int batch,
+                                      void* stream) {
+  return launch(args, batch, stream);
+}
+
+extern "C" int fused_upsampler_bf16_launch(const FusedUpsamplerArgs<bf16>* args, int batch,
+                                           void* stream) {
+  return launch(args, batch, stream);
+}
+
+// How many of the form's clusters the current device holds at once, and
+// its dynamic shared memory per block; return a CUDA error code.
+extern "C" int fused_upsampler_occupancy(int* max_active_clusters, int* smem_bytes) {
+  return occupancy<float>(max_active_clusters, smem_bytes);
+}
+
+extern "C" int fused_upsampler_bf16_occupancy(int* max_active_clusters, int* smem_bytes) {
+  return occupancy<bf16>(max_active_clusters, smem_bytes);
 }

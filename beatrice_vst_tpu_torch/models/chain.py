@@ -1,17 +1,24 @@
 """VoiceConverter: the per-frame stage chain PhoneExtractor -> VQ k-NN
 smoothing -> PitchEstimator -> pitch transform -> WaveformGenerator (port
-of `beatrice_vst_tpu/models/chain.py`, argmax mode, per-stream codebook
-and precomputed speaker K/V).
+of `beatrice_vst_tpu/models/chain.py`, argmax mode, T = 1).
 
 Per-stream conditioning arrives as a `cond` dict:
 
   speaker_embedding [B, 256]        additive speaker + formant embedding
-  kv_cache          {"k","v": [B, n_blocks, 384, A]}  projected speaker KV
-  codebook          [B, 512, 128]   the stream's VQ codebook
   vq_num_neighbors  [B] int         0 = no smoothing
   min_q / max_q     [B] int         pitch bin clamps
   average_source_pitch, intonation_intensity, pitch_shift,
   pitch_correction  [B] float; pitch_correction_type [B] int
+
+with one of each pair of routes:
+
+  kv_cache          {"k","v"(,"k_scale","v_scale")}: [B, n_blocks, 384, A(|1)]
+                    the per-stream projected speaker KV, or
+  kv_bank, kv_slot  the shared slot bank [Z, n_blocks, 384, A(|1)] and
+                    each stream's slot [B]
+  codebook(, codebook_scale)  [B, 512, 128] the stream's VQ codebook, or
+  codebook_bank, codebook_idx(, codebook_bank_scale)  the model's bank
+                    [S, 512, 128] and each stream's speaker [B]
 """
 
 from __future__ import annotations
@@ -53,17 +60,23 @@ def init_state(cfg: VoiceConverterConfig, batch_shape=(), device="cuda"):
     }
 
 
-def apply(params, cfg: VoiceConverterConfig, audio16, state, cond):
+def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype=None):
     """audio16: [B, 160] at 16 kHz -> (audio24 [B, 240] at 24 kHz, state)
     (`chain.py:128`)."""
     spec = cfg.spec
     phone, phone_state = phone_extractor.apply(params["phone"], cfg.phone, audio16,
-                                               state["phone"])
-    phone = phone_extractor.vq_knn_smooth(phone, cond["codebook"],
-                                          cond["vq_num_neighbors"])
+                                               state["phone"], compute_dtype)
+    if "codebook_bank" in cond:
+        phone = phone_extractor.vq_knn_smooth_shared(
+            phone, cond["codebook_bank"], cond["codebook_idx"], cond["vq_num_neighbors"],
+            codebook_scale=cond.get("codebook_bank_scale"))
+    else:
+        phone = phone_extractor.vq_knn_smooth(
+            phone, cond["codebook"], cond["vq_num_neighbors"],
+            codebook_scale=cond.get("codebook_scale"))
     qp_raw, pitch_feats, pitch_state = pitch_estimator.apply(
         params["pitch"], cfg.pitch, audio16, state["pitch"], cond["min_q"],
-        cond["max_q"])
+        cond["max_q"], compute_dtype)
     qp = transform_pitch(
         qp_raw,
         average_source_pitch=cond["average_source_pitch"][:, None],
@@ -75,5 +88,6 @@ def apply(params, cfg: VoiceConverterConfig, audio16, state, cond):
     )
     audio24, wg_state = waveform_generator.apply(
         params["wg"], cfg.wg, phone, qp, pitch_feats, cond["speaker_embedding"],
-        state["wg"], cond["kv_cache"])
+        state["wg"], cond.get("kv_cache"), compute_dtype,
+        kv_bank=cond.get("kv_bank"), kv_slot=cond.get("kv_slot"))
     return audio24, {"phone": phone_state, "pitch": pitch_state, "wg": wg_state}

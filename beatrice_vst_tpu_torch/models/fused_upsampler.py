@@ -10,16 +10,30 @@ features (sin k*phi for k = 1..8 and 0.1*noise), then the polynomial
 snake; a final k=3 conv to one channel and tanh give 240 samples at
 24 kHz.  It also returns the five new 2-row conv carries.
 
+Two forms, picked by the dtype of the frame features `h`, as the JAX
+kernel's `compute_dtype` (`pallas_upsampler.py:204`):
+  * f32: everything in f32.
+  * bf16: the frame features, the carries and the three matmul weights
+    (conv, source and final-conv `w`) are bf16; source features, biases
+    and snake alphas are f32.  Conv and source operands are rounded to
+    bf16, products summed in f32, biases and the snake in f32; a stage's
+    output is rounded to bf16 where the next stage reads it; audio is
+    tanh in f32 (`pallas_upsampler.py:_kernel`, `:115-200`).
+
 `fused_upsample` is the wrapper: on a CPU tensor it runs
 `fused_upsample_reference`; on a CUDA tensor it launches the kernel of
-`csrc/fused_upsampler.cu` (built with `nvcc`, loaded with `ctypes`) or
-raises.  `launches` counts kernel launches and nothing else.
+`csrc/fused_upsampler.cu` in the form of h's dtype (built with `nvcc`,
+loaded with `ctypes`) or raises.  `launches` and `launches_bf16` count
+the two forms' kernel launches and nothing else.
 
-Bound on an H100 SXM, f32 (`bound_ms`; the source note in the .cu has the
-count): 3.66 MFLOP per stream, so 0.94 GFLOP at B=256, over 67 TFLOP/s of
-f32 CUDA-core peak is 14.0 us; the bytes it must move (22.3 KB per stream
-of inputs, carries and outputs plus 2.2 MB of weights, 7.9 MB at B=256)
-take 2.4 us at 3.35 TB/s.  It is bound by operations.
+Bound on an H100 SXM (`bound_ms`; the source note in the .cu has the
+count): 3.66 MFLOP per stream, so 0.94 GFLOP at B=256.  f32: over 67
+TFLOP/s of f32 CUDA-core peak, 14.0 us; the bytes it must move (22.3 KB
+per stream of inputs, carries and outputs plus 2.2 MB of weights, 7.9 MB
+at B=256) take 2.4 us at 3.35 TB/s: bound by operations.  bf16: over
+989 TFLOP/s of dense bf16 tensor-core peak, 0.95 us; with bf16 storage
+it moves 17.8 KB per stream plus 1.1 MB of weights, 5.66 MB at B=256,
+1.69 us: bound by bytes.
 """
 
 from __future__ import annotations
@@ -38,11 +52,17 @@ CHANNELS = (128, 64, 32, 16)
 HIDDEN = 256
 N_SRC = 9  # 8 harmonics + noise
 KERNEL = 3
-# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on
+# the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0  # kernel launches since the count was last set to 0
+# kernel launches of the f32 and the bf16 form since the counts were last
+# set to 0
+launches = 0
+launches_bf16 = 0
 
 
 def _stage_dims():
@@ -64,26 +84,38 @@ def flops_per_stream() -> int:
     return 2 * macs
 
 
-def bytes_per_call(b: int) -> int:
+def bytes_per_call(b: int, dtype=torch.float32) -> int:
     """Bytes the head must move for b streams: each input read once (frame
     features, carries, source features, weights) and each output written
-    once (audio, new carries), f32."""
+    once (audio, new carries).  Frame features, carries and the matmul
+    weights are stored in `dtype`; the rest is f32."""
     h, states, src, stages, final = expected_shapes(b)
-    per_call = [h, *states, *src, *states, (b, OUT_HOP_LENGTH)]
-    per_call += [shape for st in stages for shape in st.values()] + list(final.values())
-    return 4 * sum(math.prod(shape) for shape in per_call)
+    stored = [h, *states, *states] + [st[k] for st in stages for k in ("conv_w", "src_w")]
+    stored.append(final["w"])
+    f32 = [*src, (b, OUT_HOP_LENGTH), final["b"]]
+    f32 += [st[k] for st in stages for k in ("conv_b", "src_b", "log_alpha")]
+    size = torch.empty((), dtype=dtype).element_size()
+    return (size * sum(math.prod(shape) for shape in stored)
+            + 4 * sum(math.prod(shape) for shape in f32))
 
 
-def bound_ms(b: int) -> float:
+def _bound_times(b: int, dtype):
+    """(seconds of operations at the dtype's peak, seconds of bytes)."""
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    return flops_per_stream() * b / peak, bytes_per_call(b, dtype) / PEAK_BYTES_PER_S
+
+
+def bound_ms(b: int, dtype=torch.float32) -> float:
     """Least time an H100 SXM could take for b streams: the larger of the
-    operations over f32 peak and the bytes over memory bandwidth."""
-    return max(flops_per_stream() * b / PEAK_F32_FLOPS, bytes_per_call(b) / PEAK_BYTES_PER_S) * 1e3
+    operations over the dtype's peak (f32 CUDA cores, or dense bf16 tensor
+    cores) and the bytes over memory bandwidth."""
+    return max(_bound_times(b, dtype)) * 1e3
 
 
-def bound_by(b: int) -> str:
-    """"operations" or "bytes": which of the two sets `bound_ms(b)`."""
-    ops = flops_per_stream() * b / PEAK_F32_FLOPS
-    return "operations" if ops >= bytes_per_call(b) / PEAK_BYTES_PER_S else "bytes"
+def bound_by(b: int, dtype=torch.float32) -> str:
+    """"operations" or "bytes": which of the two sets `bound_ms(b, dtype)`."""
+    ops, moved = _bound_times(b, dtype)
+    return "operations" if ops >= moved else "bytes"
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +142,11 @@ def _flat_weights(up_params, final_params):
     return out + [final_params["w"], final_params["b"]]
 
 
-_ALIGN = 16  # the kernel reads frame features, carries and weights as float4
+_ALIGN = 16  # the kernel reads frame features, carries and weights as vectors
+# positions in `_check`'s launch order of the tensors stored in h's dtype:
+# h, the 5 carries, and per stage conv w and source w, then the final w
+_STORED = frozenset([*range(6), *(10 + 5 * i for i in range(4)),
+                     *(12 + 5 * i for i in range(4)), 30])
 
 
 def _check(up_params, final_params, h, states, src_feats):
@@ -120,6 +156,8 @@ def _check(up_params, final_params, h, states, src_feats):
     if len(up_params) != len(RATES) or len(states) != len(RATES) + 1 \
             or len(src_feats) != len(RATES):
         raise ValueError("fused_upsample takes 4 stages, 5 carries and 4 source tensors")
+    if h.dtype not in DTYPES:
+        raise ValueError(f"fused_upsample computes in float32 or bfloat16, not {h.dtype}")
     kernel = h.device.type == "cuda"
     b = h.shape[0]
     want_h, want_states, want_src, want_stages, want_final = expected_shapes(b)
@@ -132,8 +170,10 @@ def _check(up_params, final_params, h, states, src_feats):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_upsample argument {i}: shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused_upsample argument {i}: dtype {t.dtype}, expected float32")
+        dtype = h.dtype if i in _STORED else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(f"fused_upsample argument {i}: dtype {t.dtype}, expected {dtype} "
+                             f"(h is {h.dtype}; mixed dtypes are refused)")
         if t.device != h.device:
             raise ValueError(f"fused_upsample argument {i} is on {t.device}, h on {h.device}")
         if kernel and not t.is_contiguous():
@@ -143,29 +183,57 @@ def _check(up_params, final_params, h, states, src_feats):
     return got
 
 
+def head_params(up_params, final_params, dtype):
+    """The head's parameters with the matmul weights (conv, source and
+    final-conv `w`) in `dtype`, as the wrapper takes them; tensors already
+    in `dtype` are passed through."""
+    up = [{"conv": {"w": p["conv"]["w"].to(dtype), "b": p["conv"]["b"]},
+           "src": {"w": p["src"]["w"].to(dtype), "b": p["src"]["b"]},
+           "snake": p["snake"]} for p in up_params]
+    return up, {"w": final_params["w"].to(dtype), "b": final_params["b"]}
+
+
 def fused_upsample_reference(up_params, final_params, h, states, src_feats):
-    """Plain PyTorch version: the stage loop of the JAX package's XLA path
+    """Plain PyTorch version, with h's dtype as the compute dtype: the
+    roundings of `pallas_upsampler.py:_kernel` (`:115-200`), whose f32 form
+    is the stage loop of the JAX package's XLA path
     (`tests/test_pallas.py:33-44`).
 
     h: [B, 1, 256]; states: 5 carries [B, 2, C]; src_feats: 4 tensors
-    [B, 4|20|80|240, 9].  Returns (audio [B, 240], new_states).
+    [B, 4|20|80|240, 9].  Conv and source operands are rounded to h's
+    dtype and their products summed in f32; biases and the snake are f32;
+    each stage's output is rounded where the next stage reads it; the new
+    carries keep their dtype.  Returns (audio [B, 240] f32, new_states).
     """
+    cd = h.dtype
     b = h.shape[0]
+
+    def conv(x, state, w, bias):
+        """k=3 causal conv of x over [2 carried rows | x] (f32 out) and the
+        new carry."""
+        seq = torch.cat([state.to(x.dtype), x], dim=1)
+        t = x.shape[1]
+        xt = torch.cat([seq[:, j:j + t] for j in range(KERNEL)], dim=-1).to(cd)
+        y = layers.matmul_f32(xt, w.reshape(-1, w.shape[-1]).to(cd)) + bias.float()
+        return y, seq[:, -2:].to(state.dtype)
+
     x = h
     new_states = []
     for i, ((r, c_out), up) in enumerate(zip(zip(RATES, CHANNELS), up_params)):
-        y, ns = layers.causal_conv(up["conv"], x, states[i])
+        y, ns = conv(x, states[i], up["conv"]["w"], up["conv"]["b"])
         new_states.append(ns)
         y = y.reshape(b, y.shape[1] * r, c_out)
-        y = y + layers.linear(up["src"], src_feats[i])
-        x = layers.snake(up["snake"], y)
-    y, ns = layers.causal_conv(final_params, x, states[-1])
+        y = y + (layers.matmul_f32(src_feats[i].to(cd), up["src"]["w"].to(cd))
+                 + up["src"]["b"].float())
+        x = layers.snake(up["snake"], y)  # f32
+    y, ns = conv(x.to(cd), states[-1], final_params["w"], final_params["b"])
     new_states.append(ns)
     return torch.tanh(y)[..., 0], new_states
 
 
 class _Args(ctypes.Structure):
-    """Mirror of `FusedUpsamplerArgs` in csrc/fused_upsampler.cu."""
+    """Mirror of `FusedUpsamplerArgs<T>` in csrc/fused_upsampler.cu (the
+    same pointers for both forms)."""
 
     _fields_ = [
         ("h", ctypes.c_void_p),
@@ -201,22 +269,33 @@ def _pack(tensors, audio, new_states) -> _Args:
     return args
 
 
+# the launcher and the occupancy query of each form in csrc/fused_upsampler.cu
+_ENTRY = {torch.float32: ("fused_upsampler_launch", "fused_upsampler_occupancy"),
+          torch.bfloat16: ("fused_upsampler_bf16_launch", "fused_upsampler_bf16_occupancy")}
+
+
 @functools.lru_cache(maxsize=None)
-def _library(source: str = "fused_upsampler"):
-    """csrc/<source>.cu built and loaded, its launcher's types set."""
+def _launcher(source: str, dtype):
+    """The launcher of the dtype's form in csrc/<source>.cu, built and
+    loaded, its argument types set."""
     from .. import cuda_build
 
-    lib = cuda_build.load_library(source)
-    # (const FusedUpsamplerArgs*, int batch, cudaStream_t)
-    lib.fused_upsampler_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.fused_upsampler_launch.restype = ctypes.c_int
-    return lib
+    if source != "fused_upsampler" and dtype != torch.float32:
+        raise ValueError(f"csrc/{source}.cu has an f32 form only")
+    fn = getattr(cuda_build.load_library(source), _ENTRY[dtype][0])
+    # (const FusedUpsamplerArgs<T>*, int batch, cudaStream_t)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def occupancy(device=None) -> dict:
+def occupancy(device=None, dtype=torch.float32) -> dict:
     """How many of the kernel's clusters of 8 blocks the card holds at
-    once, and the kernel's dynamic shared memory per block."""
-    query = _library().fused_upsampler_occupancy
+    once, and the kernel's dynamic shared memory per block, for the
+    dtype's form."""
+    from .. import cuda_build
+
+    query = getattr(cuda_build.load_library("fused_upsampler"), _ENTRY[dtype][1])
     query.argtypes = [ctypes.c_void_p, ctypes.c_void_p]  # (int* clusters, int* smem_bytes)
     query.restype = ctypes.c_int
     clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
@@ -230,15 +309,15 @@ def occupancy(device=None) -> dict:
 def fused_upsample(up_params, final_params, h, states, src_feats):
     """Run the upsampler head for one frame (same arguments and results as
     `fused_upsample_reference`).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream, without
-    synchronising, or raise."""
+    tensors launch the kernel's form of h's dtype on the current stream,
+    without synchronising, or raise."""
     return _fused_upsample(up_params, final_params, h, states, src_feats)
 
 
 def _fused_upsample(up_params, final_params, h, states, src_feats, source="fused_upsampler"):
     """`fused_upsample` with the kernel of csrc/<source>.cu (another
     version of the kernel with the same launcher, for timing against)."""
-    global launches
+    global launches, launches_bf16
     got = _check(up_params, final_params, h, states, src_feats)
     if h.device.type == "cpu":
         return fused_upsample_reference(up_params, final_params, h, states, src_feats)
@@ -248,10 +327,14 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source="fused
     audio = torch.empty((b, OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
     new_states = [torch.empty_like(s) for s in states]
     args = _pack(got, audio, new_states)
+    launch = _launcher(source, h.dtype)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _library(source).fused_upsampler_launch(ctypes.addressof(args), b, stream)
+        err = launch(ctypes.addressof(args), b, stream)
     if err != 0:
         raise RuntimeError(f"fused_upsampler kernel launch failed: CUDA error {err}")
-    launches += 1
+    if h.dtype == torch.float32:
+        launches += 1
+    else:
+        launches_bf16 += 1
     return audio, new_states

@@ -50,23 +50,26 @@ def init_state(cfg: PitchEstimatorConfig, batch_shape=(), device="cuda"):
 
 
 def apply(params, cfg: PitchEstimatorConfig, audio, state,
-          min_quantized_pitch, max_quantized_pitch):
+          min_quantized_pitch, max_quantized_pitch, compute_dtype=None):
     """audio: [B, T*160] -> (quantized_pitch [B, T] int64, features
-    [B, T, 4], new_state) (`pitch_estimator.py:81`).
+    [B, T, 4] f32, new_state) (`pitch_estimator.py:81`).
 
     min/max_quantized_pitch: [B] int, the inclusive bin range the argmax
-    may pick from.
+    may pick from.  With compute_dtype the trunk computes in it; the bin
+    logits and the features are emitted in f32, so that the argmax does
+    not compare logits rounded to bf16 (`pitch_estimator.py:108-120`).
     """
     fe = cfg.frontend
     windows, new_audio = fe.frames_from_chunk(state["audio"], audio)
-    h = layers.linear(params["prenet"], fe(windows))
+    h = layers.linear(params["prenet"], fe(windows), compute_dtype)
     new_blocks = []
     for p, s, d in zip(params["blocks"], state["blocks"], cfg.dilations):
-        h, ns = layers.conv_block(p, h, s, d)
+        h, ns = layers.conv_block(p, h, s, d, compute_dtype)
         new_blocks.append(ns)
     h = layers.layer_norm(params["out_ln"], h)
-    logits = layers.linear(params["logits"], h)
-    features = layers.linear(params["features"], h)
+    f32 = torch.float32
+    logits = layers.linear(params["logits"], h, compute_dtype, out_dtype=f32)
+    features = layers.linear(params["features"], h, compute_dtype, out_dtype=f32)
     bins = torch.arange(cfg.pitch_bins, device=logits.device)
     lo = min_quantized_pitch[:, None, None]
     hi = max_quantized_pitch[:, None, None]

@@ -4,9 +4,13 @@ frame -> 240 samples at 24 kHz (port of
 
 Frame-rate conditioning (phone, pitch-bin embedding, pitch features and
 the additive speaker embedding), four causal conv blocks each followed by
-cross-attention into the stream's precomputed speaker K/V, then a
-harmonic-plus-noise source evaluated at every upsampler rate and the
-depth-to-time upsampler head (`fused_upsampler.py`).
+cross-attention into the speaker K/V -- a per-stream projected cache
+(f32/bf16, or int8 with per-row scales) or a shared slot bank read
+through one-hot contractions (f32/bf16, or int8 with int8 contractions)
+-- then a harmonic-plus-noise source evaluated at every upsampler rate
+and the depth-to-time upsampler head (`fused_upsampler.py`).  With a
+compute dtype the residual stream, the carries and the head compute in
+it (`waveform_generator.py:336-395`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from ..constants import OUT_HOP_LENGTH, OUT_SAMPLE_RATE, VersionSpec
 from ..device import resolve_device
 from . import layers
-from .fused_upsampler import fused_upsample, fused_upsample_reference
+from .fused_upsampler import fused_upsample, fused_upsample_reference, head_params
 
 _TWO_PI = 2.0 * math.pi
 
@@ -116,12 +120,13 @@ def _harmonic_features(phases, periodicity, n_harmonics: int):
     return bank * torch.sigmoid(periodicity)[..., None, None]
 
 
-def project_kv(params, kv_embedding):
+def project_kv(params, kv_embedding, compute_dtype=None):
     """Per-block K/V of a speaker KV bank [..., L, Ckv] ->
-    {"k", "v": [..., n_blocks, L, A]} (`waveform_generator.py:298`)."""
+    {"k", "v": [..., n_blocks, L, A]}, in compute_dtype if given
+    (`waveform_generator.py:298`)."""
     ks, vs = [], []
     for p in params["blocks"]:
-        k, v = layers.cross_attention_project_kv(p["attn"], kv_embedding)
+        k, v = layers.cross_attention_project_kv(p["attn"], kv_embedding, compute_dtype)
         ks.append(k)
         vs.append(v)
     return {"k": torch.stack(ks, dim=-3), "v": torch.stack(vs, dim=-3)}
@@ -152,36 +157,66 @@ def source_features(cfg: WaveformGeneratorConfig, quantized_pitch, periodicity,
     return feats, new_phase, new_counter
 
 
+def _attention(p, h, i, kv_cache, kv_bank, slot_onehot, compute_dtype):
+    """Block i's cross-attention into the per-stream cache or the slot
+    bank, f32/bf16 or int8 (`waveform_generator.py:370-395`)."""
+    if slot_onehot is not None:
+        if "k_scale" in kv_bank:
+            return layers.cross_attention_slots_q8(
+                p, h, kv_bank["k"][:, i], kv_bank["k_scale"][:, i], kv_bank["v"][:, i],
+                kv_bank["v_scale"][:, i], slot_onehot, compute_dtype)
+        return layers.cross_attention_slots(p, h, kv_bank["k"][:, i], kv_bank["v"][:, i],
+                                            slot_onehot, compute_dtype)
+    if kv_cache is None:
+        raise ValueError("the 2.0.0-rc.0 vocoder needs kv_cache or kv_bank and kv_slot")
+    if "k_scale" in kv_cache:
+        return layers.cross_attention_cached_q(
+            p, h, kv_cache["k"][:, i], kv_cache["k_scale"][:, i], kv_cache["v"][:, i],
+            kv_cache["v_scale"][:, i], compute_dtype)
+    return layers.cross_attention_cached(p, h, kv_cache["k"][:, i], kv_cache["v"][:, i],
+                                         compute_dtype)
+
+
 def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
-          pitch_features, speaker_embedding, state, kv_cache):
+          pitch_features, speaker_embedding, state, kv_cache=None, compute_dtype=None,
+          kv_bank=None, kv_slot=None):
     """One frame per stream (`waveform_generator.py:315`, T = 1).
 
     phone: [B, 1, phone_channels]; quantized_pitch: [B, 1] int bins;
     pitch_features: [B, 1, 4]; speaker_embedding: [B, hidden];
-    kv_cache: {"k", "v": [B, n_blocks, L, A]} from `project_kv`.
-    Returns (audio [B, 240] in [-1, 1], new_state).
+    kv_cache: {"k", "v"(, "k_scale", "v_scale"): [B, n_blocks, L, A(|1)]}
+    from `project_kv`, or kv_bank {"k", "v"(, scales): [Z, n_blocks, L,
+    A(|1)]} with kv_slot [B] int, each stream's slot.  With compute_dtype
+    the residual stream and the carries are in it; the head computes in
+    it.  Returns (audio [B, 240] f32 in [-1, 1], new_state).
     """
     b, t = quantized_pitch.shape
     if t != 1:
         raise ValueError(f"the ported vocoder runs one frame per call, got T={t}")
     qp = torch.clamp(quantized_pitch, 0, cfg.pitch_bins - 1)
-    h = (layers.linear(params["phone_in"], phone)
-         + params["pitch_emb"][qp]
-         + layers.linear(params["feat_in"], pitch_features))
-    h = h + layers.linear(params["spk_in"], speaker_embedding[:, None, :])
+    pe = params["pitch_emb"]
+    if compute_dtype is not None:
+        pe = pe.to(compute_dtype)  # cast before the gather, as the JAX package
+    h = (layers.linear(params["phone_in"], phone, compute_dtype)
+         + pe[qp]
+         + layers.linear(params["feat_in"], pitch_features, compute_dtype))
+    h = h + layers.linear(params["spk_in"], speaker_embedding[:, None, :], compute_dtype)
+    slot_onehot = None
+    if kv_bank is not None and kv_slot is not None:
+        slot_onehot = torch.nn.functional.one_hot(
+            kv_slot, kv_bank["k"].shape[0]).to(torch.float32)
     new_blocks = []
     for i, (p, s) in enumerate(zip(params["blocks"], state["blocks"])):
-        h, ns = layers.conv_block(p["conv"], h, s, 1)
-        h = layers.cross_attention_cached(p["attn"], h, kv_cache["k"][:, i],
-                                          kv_cache["v"][:, i])
+        h, ns = layers.conv_block(p["conv"], h, s, 1, compute_dtype)
+        h = _attention(p["attn"], h, i, kv_cache, kv_bank, slot_onehot, compute_dtype)
         new_blocks.append(ns)
     h = layers.layer_norm(params["out_ln"], h)
 
     src, new_phase, new_counter = source_features(
         cfg, qp, pitch_features[..., 0], state)
     head = fused_upsample if cfg.upsampler_kernel else fused_upsample_reference
-    audio, new_states = head(params["up"], params["final"], h.contiguous(),
-                             [*state["up"], state["final"]], src)
+    up, final = head_params(params["up"], params["final"], h.dtype)
+    audio, new_states = head(up, final, h.contiguous(), [*state["up"], state["final"]], src)
     return audio, {
         "blocks": new_blocks,
         "up": new_states[:-1],

@@ -25,6 +25,10 @@ CONTROL_FIELDS = {
     "vq_num_neighbors": (torch.int64, 0),
     "input_gain_db": (torch.float32, 0.0),
     "output_gain_db": (torch.float32, 0.0),
+    # slots-mode KV selector, an index into [n_speakers + n_morph_slots):
+    # read only for morph-mode streams, whose speakers are not ported yet;
+    # a direct speaker's slot is its target_speaker (`controls.py:40-43`)
+    "kv_slot": (torch.int64, 0),
 }
 
 

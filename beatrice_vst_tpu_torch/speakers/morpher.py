@@ -19,10 +19,11 @@ def select_conditioning(bank, target_speaker, formant_index):
     target_speaker: [B] int in [0, n_speakers) -- callers validate it
     (StreamEngine.set_control raises on a morph-mode value); formant_index:
     [B] int in [0, 9).  Returns (additive + formant embedding [B, 256],
+    summed in f32 whatever the bank's dtype, as the JAX package does;
     codebook speaker index [B]).
     """
     n = bank["additive"].shape[0]
     direct = torch.clamp(target_speaker, 0, n - 1)
     formant = torch.clamp(formant_index, 0, N_FORMANTS - 1)
-    additive = bank["additive"][direct] + bank["formant"][formant]
+    additive = bank["additive"][direct].float() + bank["formant"][formant].float()
     return additive, direct

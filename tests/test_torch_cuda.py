@@ -1,13 +1,20 @@
-"""Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the engine through the kernel against the engine through
-the plain version.  They skip where torch.cuda.is_available() is false.
+"""Card-only tests of the port: each form of the CUDA kernel against its
+plain PyTorch version, the engine through the kernel against the engine
+through the plain version and against the golden file of the JAX engine,
+in the three configurations, the exact int8 contractions, and a tick
+without host synchronisation.  They skip where torch.cuda.is_available()
+is false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: atol 1e-4, f32 sums of up to 768 terms in another order (TF32
-off on both sides).
+Tolerances: f32 atol 1e-4, sums of up to 768 terms in another order (TF32
+off on both sides).  bf16 atol 2e-2: the same sums can put a stage output
+on the other side of a bf16 rounding (one bf16 ulp is 2^-8 to 2^-7 of a
+value), and the next stages carry that on.  The golden file: f32 engines
+at atol 1e-3, the bf16 engine by the envelope of
+`beatrice_vst_tpu_torch.golden`.
 """
 
 import os
@@ -16,10 +23,22 @@ import numpy as np
 import pytest
 import torch
 
+from beatrice_vst_tpu_torch import golden
 from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+from beatrice_vst_tpu_torch.models import layers
 
 MODEL_DIR = os.path.join(os.path.dirname(__file__), "..", "models_demo", "klatt8")
+GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_engine_golden.npz")
 TOL = 1e-4
+BF16_TOL = 2e-2
+# name -> EngineConfig.realtime keywords
+CONFIGS = {
+    "per_stream_f32": dict(kv_cache_mode="per_stream", vq_shared_bank=False),
+    "slots_f32": {},
+    "slots_bf16": dict(compute_dtype="bfloat16"),
+    "per_stream_bf16": dict(compute_dtype="bfloat16", kv_cache_mode="per_stream",
+                            vq_shared_bank=False),
+}
 
 
 @pytest.fixture
@@ -31,7 +50,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _upsampler_args(b, seed, device):
+def _upsampler_args(b, seed, device, dtype=torch.float32):
+    """Random head arguments; with bf16, h, the carries and the matmul
+    weights in bf16 (rounded from the same f32 draws)."""
+    up, final, h, states, src = _upsampler_args_f32(b, seed, device)
+    up, final = FU.head_params(up, final, dtype)
+    return up, final, h.to(dtype), [s.to(dtype) for s in states], src
+
+
+def _upsampler_args_f32(b, seed, device):
     rng = np.random.default_rng(seed)
     h_shape, state_shapes, src_shapes, stage_shapes, final_shapes = FU.expected_shapes(b)
 
@@ -65,9 +92,46 @@ def test_fused_upsampler_kernel_matches_plain(cuda_device, b):
 
 
 @pytest.mark.cuda
-def test_fused_upsampler_is_deterministic(cuda_device):
+@pytest.mark.parametrize("b", [1, 3, 15, 16, 17, 100, 256, 1000])
+def test_fused_upsampler_bf16_kernel_matches_plain(cuda_device, b):
+    args = _upsampler_args(b, b, cuda_device, torch.bfloat16)
+    before, before_f32 = FU.launches_bf16, FU.launches
+    audio, new_states = FU.fused_upsample(*args)
+    torch.cuda.synchronize()
+    assert (FU.launches_bf16, FU.launches) == (before + 1, before_f32)
+    want_audio, want_states = FU.fused_upsample_reference(*args)
+    assert audio.dtype == torch.float32
+    torch.testing.assert_close(audio, want_audio, rtol=0, atol=BF16_TOL)
+    for got, want in zip(new_states, want_states):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_upsampler_bf16_kernel_rounds_where_the_plain_version_does(cuda_device):
+    """The bf16 form rounds to bf16 where the plain bf16 version does: on
+    the same bf16 inputs its RMS distance from that version is at most a
+    quarter of the plain f32 version's (which rounds nowhere), for the
+    audio and every carry."""
+    up, final, h, states, src = _upsampler_args(256, 5, cuda_device, torch.bfloat16)
+    got = FU.fused_upsample(up, final, h, states, src)
+    want = FU.fused_upsample_reference(up, final, h, states, src)
+    up32, final32 = FU.head_params(up, final, torch.float32)
+    f32 = FU.fused_upsample_reference(up32, final32, h.float(), [s.float() for s in states],
+                                      src)
+
+    def rms(a, b):
+        return float(((a.float() - b.float()) ** 2).mean().sqrt())
+
+    for g, w, f in zip([got[0], *got[1]], [want[0], *want[1]], [f32[0], *f32[1]]):
+        assert rms(g, w) <= 0.25 * rms(f, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_upsampler_is_deterministic(cuda_device, dtype):
     # no atomics and sums in a fixed order: two launches agree bit for bit
-    args = _upsampler_args(100, 7, cuda_device)
+    args = _upsampler_args(100, 7, cuda_device, dtype)
     first = FU.fused_upsample(*args)
     second = FU.fused_upsample(*args)
     torch.cuda.synchronize()
@@ -104,20 +168,29 @@ def test_fused_upsampler_rejects_non_contiguous(cuda_device):
         FU.fused_upsample(up, final, h, states, src)
 
 
-@pytest.mark.cuda
-def test_engine_kernel_matches_plain_engine(cuda_device):
+def _engine(config, device, upsampler_kernel=True, cap=8):
     from beatrice_vst_tpu_torch.constants import V20RC0
     from beatrice_vst_tpu_torch.models.io import load_weights
     from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
     from beatrice_vst_tpu_torch.speakers import bank as bank_mod
 
-    params = load_weights(os.path.join(MODEL_DIR, "weights.npz"), device=cuda_device)
-    bank = bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=cuda_device)
+    params = load_weights(os.path.join(MODEL_DIR, "weights.npz"), device=device)
+    bank = bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=device)
+    cfg = EngineConfig.realtime(cap, upsampler_kernel=upsampler_kernel, **CONFIGS[config])
+    return StreamEngine(cfg, params, bank, device=device)
+
+
+def _counter(config):
+    return "launches_bf16" if config.endswith("bf16") else "launches"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_engine_kernel_matches_plain_engine(cuda_device, config):
     cap, ticks = 8, 6
     engines = []
     for kernel in (True, False):
-        e = StreamEngine(EngineConfig.realtime(cap, upsampler_kernel=kernel), params, bank,
-                         device=cuda_device)
+        e = _engine(config, cuda_device, kernel, cap)
         for i in range(cap):
             e.admit()
             e.set_control(i, "target_speaker", i)
@@ -126,9 +199,66 @@ def test_engine_kernel_matches_plain_engine(cuda_device):
     rng = np.random.default_rng(0)
     audio = torch.from_numpy((rng.standard_normal((ticks, cap, 480)) * 0.1)
                              .astype(np.float32)).to(cuda_device)
-    before = FU.launches
+    before = getattr(FU, _counter(config))
+    tol = BF16_TOL if config.endswith("bf16") else TOL
     for k in range(ticks):
         got = engines[0].tick(audio[k])
         want = engines[1].tick(audio[k])
-        torch.testing.assert_close(got, want, rtol=0, atol=TOL)
-    assert FU.launches == before + ticks
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert getattr(FU, _counter(config)) == before + ticks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_engine_on_the_card_matches_the_golden_file(cuda_device, config):
+    """The card's engine on the golden run (4 streams x 20 ticks): f32 at
+    atol 1e-3 of the JAX engine's output, bf16 by the envelope."""
+    ref = golden.load(GOLDEN)
+    got = golden.run(_engine(config, cuda_device, cap=golden.CAPACITY),
+                     lambda t: t.cpu().numpy())
+    if config.endswith("bf16"):
+        env = golden.envelope(got, ref)
+        assert env["ok"], env
+    else:
+        np.testing.assert_allclose(got, ref["f32"], rtol=0, atol=golden.F32_ATOL)
+
+
+@pytest.mark.cuda
+def test_int8_contractions_are_exact_on_the_card(cuda_device):
+    """The slot attention's int8 x int8 products equal the CPU's int32
+    results bit for bit, with TF32 allowed or not."""
+    rng = np.random.default_rng(3)
+    a = rng.integers(-127, 128, (256, 24 * 64)).astype(np.int64)
+    b = rng.integers(-127, 128, (24 * 64, 384)).astype(np.int64)
+    want = a @ b  # int64 on the CPU: exact
+    assert np.abs(want).max() < 2**24
+    for allow in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        got = layers._int8_dot(torch.from_numpy(a).to(cuda_device, torch.int8),
+                               torch.from_numpy(b).to(cuda_device, torch.int8))
+        assert np.array_equal(got.cpu().numpy().astype(np.int64), want), allow
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_warm_tick_makes_no_host_synchronisation(cuda_device, config):
+    """A warm engine_tick copies nothing to the host and waits for nothing
+    (what a CUDA graph over the tick needs)."""
+    from beatrice_vst_tpu_torch.runtime.engine import engine_tick
+
+    e = _engine(config, cuda_device)
+    for i in range(e.cfg.capacity):
+        e.admit()
+        e.set_control(i, "target_speaker", i % 8)
+    x = torch.zeros((e.cfg.capacity, 480), device=cuda_device)
+    for _ in range(2):
+        e.tick(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, state = engine_tick(e.params, e.bank, e.state, x, cfg=e.cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())

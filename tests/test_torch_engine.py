@@ -1,11 +1,23 @@
 """The slice as a whole: the port's StreamEngine against the JAX
-StreamEngine on the shipped klatt8 weights, and the engine's control
-plane.
+StreamEngine on the shipped klatt8 weights in three configurations, the
+golden file made from the JAX engine, and the engine's control plane.
 
-The JAX engine runs f32 (its default compute dtype) with the per-stream
-K/V cache and per-stream codebooks -- the configuration the port honours
--- and its default XLA upsampler (use_pallas_upsampler off).  Audio is
-held at atol 1e-3, the waveform gate of tests/test_golden.py."""
+Configurations (the same `EngineConfig.realtime` keywords for both
+packages): per-stream f32 (per-stream K/V cache and codebooks); the JAX
+default, slots f32 (slot-bank K/V, shared-bank VQ); the one bench.py
+measures, slots bf16 (bf16 compute, int8 slot bank and contractions,
+int8 codebook through the shared-bank VQ); and per-stream bf16 (the int8
+K/V cache and per-stream int8 codebooks).  The JAX engine runs its
+default XLA upsampler (use_pallas_upsampler off); the port runs the
+upsampler head's plain version on the CPU.
+
+Gates: f32 audio at atol 1e-3, the waveform gate of tests/test_golden.py.
+bf16 by the envelope of `beatrice_vst_tpu_torch.golden`: the port's
+largest and RMS deviation from the JAX f32 engine (of the same K/V mode)
+are each at most twice the JAX bf16 engine's own.  Run with -s to see the measured numbers.
+
+`PYTHONPATH=. python tests/test_torch_engine.py` rewrites the golden file
+from the JAX engine."""
 
 import dataclasses
 import os
@@ -17,6 +29,9 @@ import torch
 from beatrice_vst_tpu.models.io import load_model_dir
 from beatrice_vst_tpu.runtime.engine import EngineConfig as JEngineConfig
 from beatrice_vst_tpu.runtime.engine import StreamEngine as JStreamEngine
+from beatrice_vst_tpu.runtime.engine import cast_bank as jcast_bank
+from beatrice_vst_tpu.runtime.engine import init_engine_state as jinit_engine_state
+from beatrice_vst_tpu_torch import golden
 from beatrice_vst_tpu_torch.constants import V20RC0
 from beatrice_vst_tpu_torch.errors import BeatriceError
 from beatrice_vst_tpu_torch.models.io import load_weights
@@ -26,16 +41,29 @@ from beatrice_vst_tpu_torch.models import pitch_estimator as PPI
 from beatrice_vst_tpu_torch.models import waveform_generator as PW
 from beatrice_vst_tpu_torch.ops.resample import input_resampler_48k_to_16k
 from beatrice_vst_tpu_torch.runtime.controls import init_controls
-from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine, init_engine_state
+from beatrice_vst_tpu_torch.runtime.engine import (EngineConfig, StreamEngine, cast_bank,
+                                                    init_engine_state)
 from beatrice_vst_tpu_torch.speakers import bank as bank_mod
 
 torch.set_num_threads(1)
 
 MODEL_DIR = os.path.join(os.path.dirname(__file__), "..", "models_demo", "klatt8")
-CAP = 4
-TICKS = 8
-# (target_speaker, formant_index, vq_num_neighbors, pitch_shift)
-CONTROLS = [(0, 4, 0, 0.0), (3, 2, 4, 2.0), (5, 6, 8, -3.0), (7, 0, 1, 0.5)]
+GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_engine_golden.npz")
+CAP = golden.CAPACITY
+# name -> EngineConfig.realtime keywords, the same for both packages
+CONFIGS = {
+    "per_stream_f32": dict(kv_cache_mode="per_stream", vq_shared_bank=False),
+    "slots_f32": {},
+    "slots_bf16": dict(compute_dtype="bfloat16"),
+    # bf16 per stream: the int8 K/V cache and the per-stream int8 codebook
+    "per_stream_bf16": dict(compute_dtype="bfloat16", kv_cache_mode="per_stream",
+                            vq_shared_bank=False),
+}
+# golden file key -> configuration
+GOLDEN_KEYS = {"f32": "slots_f32", "bf16": "slots_bf16"}
+# the golden file against a fresh JAX run: XLA's CPU sums differ between
+# thread counts by up to 4.5e-8 (f32) and 8.1e-5 (bf16) on these inputs
+GOLDEN_TOL = {"f32": 1e-6, "bf16": 1e-3}
 
 
 @pytest.fixture(scope="module")
@@ -45,39 +73,126 @@ def klatt8_port():
     return params, bank
 
 
-def _audio(seed, cap=CAP, ticks=TICKS):
-    """Swept sine (120 Hz upward) plus noise at 48 kHz, [cap, ticks*480]."""
-    rng = np.random.default_rng(seed)
-    n = np.arange(480 * ticks) / 48000.0
-    sweep = 0.3 * np.sin(2 * np.pi * (120 * n + 200 * n * n))
-    return (sweep[None] + 0.02 * rng.standard_normal((cap, n.size))).astype(np.float32)
+_audio = golden.swept_sine
 
 
-def _admit_all(engine):
-    for speaker, formant, vq, shift in CONTROLS:
-        i = engine.admit()
-        engine.set_control(i, "target_speaker", np.int32(speaker))
-        engine.set_control(i, "formant_index", np.int32(formant))
-        engine.set_control(i, "vq_num_neighbors", np.int32(vq))
-        engine.set_control(i, "pitch_shift", np.float32(shift))
-
-
-def test_engine_matches_jax_engine_on_klatt8(klatt8_port):
+def _jax_runs(names):
+    """The JAX engine's golden run in each named configuration:
+    {name: [ticks, CAP, 480]}."""
     _, _, jparams, jbank = load_model_dir(MODEL_DIR)
-    jcfg = dataclasses.replace(JEngineConfig.realtime(CAP), kv_cache_mode="per_stream",
-                               vq_shared_bank=False)
-    assert jcfg.compute_dtype is None and not jcfg.model.wg.use_pallas_upsampler
-    jeng = JStreamEngine(jcfg, jparams, jbank)
-    peng = StreamEngine(EngineConfig.realtime(CAP), *klatt8_port, device="cpu")
-    _admit_all(jeng)
-    _admit_all(peng)
-    audio = _audio(0)
-    for k in range(TICKS):
-        x = audio[:, 480 * k:480 * (k + 1)]
-        want = np.asarray(jeng.tick(x))
-        got = peng.tick(x).numpy()
-        assert np.abs(want).max() > 1e-3  # real output, not silence
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    out = {}
+    for name in names:
+        jcfg = JEngineConfig.realtime(CAP, **CONFIGS[name])
+        assert not jcfg.model.wg.use_pallas_upsampler
+        out[name] = golden.run(JStreamEngine(jcfg, jparams, jbank))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_outputs():
+    return _jax_runs(CONFIGS)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_engine_matches_jax_engine_on_klatt8(klatt8_port, jax_outputs, config):
+    peng = StreamEngine(EngineConfig.realtime(CAP, **CONFIGS[config]), *klatt8_port,
+                        device="cpu")
+    got = golden.run(peng, lambda t: t.numpy())
+    want = jax_outputs[config]
+    assert np.abs(want).max(axis=(1, 2)).min() > 1e-3  # real output every tick, not silence
+    if config.endswith("bf16"):
+        ref = jax_outputs[config.replace("bf16", "f32")]
+        env = golden.envelope(got, {"f32": ref, "bf16": want})
+        print(f"\n{config}: {env}")
+        assert env["ok"], env
+    else:
+        print(f"\n{config}: max |d| against the JAX engine {np.abs(got - want).max():.3g}")
+        np.testing.assert_allclose(got, want, rtol=0, atol=golden.F32_ATOL)
+
+
+def test_golden_file_matches_the_jax_engine(jax_outputs):
+    """The committed golden file equals a fresh run of the JAX engine, up to
+    the spread of XLA's CPU sums (GOLDEN_TOL), so it cannot drift."""
+    committed = golden.load(GOLDEN)
+    assert sorted(committed) == sorted(GOLDEN_KEYS)
+    for key, config in GOLDEN_KEYS.items():
+        assert committed[key].dtype == np.float32
+        assert committed[key].shape == (golden.TICKS, CAP, 480)
+        np.testing.assert_allclose(committed[key], jax_outputs[config], rtol=0,
+                                   atol=GOLDEN_TOL[key])
+    assert os.path.getsize(GOLDEN) < 400_000
+
+
+def test_engine_config_has_the_jax_fields_and_defaults():
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)
+                if f.name != "frames_per_tick"]
+
+    assert fields(EngineConfig) == fields(JEngineConfig)
+    port, ref = EngineConfig.realtime(CAP), JEngineConfig.realtime(CAP)
+    for name, _ in fields(EngineConfig)[2:]:
+        assert getattr(port, name) == getattr(ref, name), name
+    with pytest.raises(ValueError, match="kv_cache_mode"):
+        EngineConfig.realtime(CAP, kv_cache_mode="ring")
+
+
+def _dtypes(tree):
+    """{path: (shape, dtype name)} of a state tree's K/V and carries."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            out[path] = (tuple(node.shape), str(node.dtype).replace("torch.", ""))
+
+    walk(tree, "")
+    return out
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_init_engine_state_matches_jax_kv_and_carry_dtypes(config):
+    """The K/V state (slot bank or per-stream cache, f32, bf16 or int8 with
+    f32 scales) and the vocoder's carries match the JAX engine's in shape
+    and dtype."""
+    pstate = init_engine_state(EngineConfig.realtime(3, **CONFIGS[config]), device="cpu")
+    jstate = jinit_engine_state(JEngineConfig.realtime(3, **CONFIGS[config]))
+    kv = "kv_cache" if config.startswith("per_stream") else "kv_slots"
+    assert kv in pstate and kv in jstate
+    assert _dtypes(pstate[kv]) == _dtypes(jstate[kv])
+    # the vocoder's carries have the JAX engine's dtypes (its T = 1 layout
+    # keeps some ring-major, so shapes are not compared)
+    for key in ("blocks", "up", "final"):
+        assert ([d for _, d in _dtypes(pstate["model"]["wg"][key]).values()]
+                == [d for _, d in _dtypes(jstate["model"]["wg"][key]).values()]), key
+    want = "bfloat16" if config.endswith("bf16") else "float32"
+    for path, (_, dtype) in _dtypes(pstate["model"]).items():
+        if path.endswith(("/audio", "/phase")):
+            assert dtype == "float32", path
+        elif path.endswith("/noise_counter"):
+            assert dtype == "int64", path
+        else:
+            assert dtype == want, path
+
+
+def test_cast_bank_matches_jax():
+    """bf16 bank and int8 codebook: int8 bit-equal, scales and bf16
+    tensors equal."""
+    _, _, _, jbank = load_model_dir(MODEL_DIR)
+    import jax.numpy as jnp
+
+    want = jcast_bank(jbank, jnp.bfloat16, quantize_codebook=True)
+    got = cast_bank({k: np.asarray(v) for k, v in jbank.items()}, torch.bfloat16, True,
+                    device="cpu")
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        w = np.asarray(w.astype(jnp.float32) if w.dtype == jnp.bfloat16 else w)
+        g = got[k].float().numpy() if got[k].dtype == torch.bfloat16 else got[k].numpy()
+        np.testing.assert_array_equal(g, w, err_msg=k)
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(klatt8_port):
@@ -171,3 +286,10 @@ def test_init_functions_default_to_cuda_and_raise_without_it(name):
 def test_init_functions_run_on_the_cpu_when_asked(name):
     tensors = _tensors(_INITS[name](device="cpu"))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+if __name__ == "__main__":
+    runs = _jax_runs(GOLDEN_KEYS.values())
+    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
+    np.savez_compressed(GOLDEN, **{key: runs[config] for key, config in GOLDEN_KEYS.items()})
+    print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")

@@ -3,9 +3,13 @@
 the CPU), and the wrapper's CPU route and checks.  The CUDA kernel itself
 is held against the plain version in tests/test_torch_cuda.py.
 
-Tolerances: f32 audio rtol 1e-4 / atol 1e-5 and carries rtol 1e-5 /
-atol 1e-6 against the Pallas kernel, as tests/test_pallas.py holds it
-against XLA."""
+Tolerances against the Pallas kernel: f32 audio rtol 1e-4 / atol 1e-5
+and carries rtol 1e-5 / atol 1e-6, as tests/test_pallas.py holds it
+against XLA.  bf16 (`compute_dtype=bfloat16`, bf16 frame features and
+carries): f32 sums in another order can put a stage output on the other
+side of a bf16 rounding, so each carry is held within 1 bf16 ulp of its
+largest value and the audio at atol 1e-4 (measured: 1.5e-5, carries
+within 1.9e-6)."""
 
 import numpy as np
 import jax
@@ -45,26 +49,46 @@ def _inputs(b, seed):
     return params, h, states, src
 
 
-def _torch_args(params, h, states, src, device="cpu"):
+def _torch_args(params, h, states, src, device="cpu", dtype=torch.float32):
+    """Torch arguments; with bf16, h and the carries in bf16 and the matmul
+    weights too (`head_params`), as the bf16 engine passes them."""
     tp = params_from_numpy({"up": params["up"], "final": params["final"]}, device)
-    return (tp["up"], tp["final"], torch.from_numpy(h).to(device),
-            [torch.from_numpy(s).to(device) for s in states],
+    up, final = FU.head_params(tp["up"], tp["final"], dtype)
+    return (up, final, torch.from_numpy(h).to(device, dtype),
+            [torch.from_numpy(s).to(device, dtype) for s in states],
             [torch.from_numpy(s).to(device) for s in src])
 
 
-def test_plain_matches_pallas_kernel_interpret():
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_matches_pallas_kernel_interpret(dtype):
     b = 16
     params, h, states, src = _inputs(b, seed=0)
+    jdt, pdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
+                                                                      torch.float32)
+    # bf16 inputs are made by rounding the f32 ones, the same in both
     audio_j, states_j = pallas_fused_upsample(
-        params["up"], params["final"], jnp.asarray(h),
-        [jnp.asarray(s) for s in states], [jnp.asarray(s) for s in src],
-        rates=FU.RATES, channels=FU.CHANNELS, compute_dtype=jnp.float32,
-        interpret=True)
-    audio_p, states_p = FU.fused_upsample_reference(*_torch_args(params, h, states, src))
-    np.testing.assert_allclose(audio_p.numpy(), np.asarray(audio_j), rtol=1e-4, atol=1e-5)
+        params["up"], params["final"], jnp.asarray(h).astype(jdt),
+        [jnp.asarray(s).astype(jdt) for s in states], [jnp.asarray(s) for s in src],
+        rates=FU.RATES, channels=FU.CHANNELS, compute_dtype=jdt, interpret=True)
+    audio_p, states_p = FU.fused_upsample_reference(
+        *_torch_args(params, h, states, src, dtype=pdt))
+    assert audio_p.dtype == torch.float32
     assert len(states_p) == len(states_j) == 5
+    if dtype == "f32":
+        np.testing.assert_allclose(audio_p.numpy(), np.asarray(audio_j), rtol=1e-4, atol=1e-5)
+        for got, want in zip(states_p, states_j):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+        return
+    print(f"\nbf16 plain vs Pallas: audio max |d| "
+          f"{np.abs(audio_p.numpy() - np.asarray(audio_j)).max():.3g}, carries "
+          + ", ".join(f"{np.abs(g.float().numpy() - np.asarray(w, np.float32)).max():.3g}"
+                      for g, w in zip(states_p, states_j)))
+    np.testing.assert_allclose(audio_p.numpy(), np.asarray(audio_j), rtol=0, atol=1e-4)
     for got, want in zip(states_p, states_j):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=2.0**-7 * np.abs(want).max())
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_counting():
@@ -81,10 +105,20 @@ def test_wrapper_on_cpu_runs_plain_version_without_counting():
     assert bool((audio.abs() <= 1).all())
 
 
-@pytest.mark.parametrize("bad", ["h_shape", "state_shape", "src_shape", "dtype", "weight"])
+@pytest.mark.parametrize("bad", ["h_shape", "state_shape", "src_shape", "dtype", "weight",
+                                 "mixed_carry", "mixed_weight", "bf16_bias"])
 def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
     params, h, states, src = _inputs(2, seed=2)
     up, final, th, ts, tsrc = _torch_args(params, h, states, src)
+    if bad == "mixed_carry":  # bf16 h with an f32 carry
+        up, final, th, ts, tsrc = _torch_args(params, h, states, src, dtype=torch.bfloat16)
+        ts[3] = ts[3].float()
+    elif bad == "mixed_weight":  # bf16 h with an f32 conv weight
+        up, final, th, ts, tsrc = _torch_args(params, h, states, src, dtype=torch.bfloat16)
+        up[2]["conv"]["w"] = up[2]["conv"]["w"].float()
+    elif bad == "bf16_bias":  # biases stay f32 in both forms
+        up, final, th, ts, tsrc = _torch_args(params, h, states, src, dtype=torch.bfloat16)
+        final["b"] = final["b"].bfloat16()
     if bad == "h_shape":
         th = th[:, :, :128]
     elif bad == "state_shape":
@@ -122,6 +156,25 @@ def test_bound_matches_the_hand_count():
     assert FU.bound_by(256) == "operations"
     assert FU.bytes_per_call(256) / FU.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.00236, rel=1e-2)
     assert FU.bound_by(1) == "bytes"  # one stream still reads all 2.2 MB of weights
+
+
+def test_bf16_bound_matches_the_hand_count():
+    """bf16 form: h, carries in and out and the three matmul weights in
+    bf16; source features, audio, biases and alphas f32; operations over
+    989 TFLOP/s."""
+    per_stream = 2 * (256 + 2 * 2 * 496) + 4 * (344 * 9 + 240)
+    assert per_stream == 17_824
+    weights = (2 * (3 * 256 * 512 + 3 * 128 * 320 + 3 * 64 * 128 + 3 * 32 * 48 + 9 * 240
+                    + 3 * 16)
+               + 4 * (512 + 320 + 128 + 48 + 240 + 240 + 1))
+    assert weights == 1_100_932
+    for b in (1, 16, 256, 1024):
+        assert FU.bytes_per_call(b, torch.bfloat16) == per_stream * b + weights
+    # 0.937 GFLOP over 989 TFLOP/s at B=256: 0.947 us, below 5.66 MB over 3.35 TB/s (1.69 us)
+    assert FU.bound_ms(256, torch.bfloat16) == pytest.approx(
+        (per_stream * 256 + weights) / 3.35e12 * 1e3, rel=1e-9)
+    assert FU.bound_by(256, torch.bfloat16) == "bytes"
+    assert FU.bound_by(16 * 1024, torch.bfloat16) == "bytes"
 
 
 def test_build_path_follows_source_headers_and_flags(tmp_path, monkeypatch):
