@@ -1,7 +1,8 @@
-"""The engine's golden run: the JAX engine's output on klatt8, stored in
-`tests/data/torch_engine_golden.npz`, and what makes it -- the streams'
-controls and the input signal -- so that the port's engine on any device
-can be held to it.
+"""The golden runs: the JAX package's output on klatt8, stored in
+`tests/data/torch_engine_golden.npz` (the engine) and
+`tests/data/torch_offline_golden.npz` (offline conversion), and what
+makes them -- the streams' controls, the settings and the input signals
+-- so that the port on any device can be held to them.
 
 The file holds, for 4 streams x 20 ticks of `swept_sine`, the output
 [ticks, streams, 480] of the JAX `StreamEngine` on the CPU in its default
@@ -17,6 +18,14 @@ largest and its RMS deviation from "f32" may each be at most twice the JAX
 bf16 engine's own ("bf16" against "f32").  bf16 roundings taken in
 another order can flip a pitch-bin argmax or a VQ neighbour, so a tight
 gate against the JAX bf16 output would not be honest.
+
+The offline file holds, under the key "f32", the output of the JAX
+package's `convert_utterance` on the CPU for `offline_signal` (1.5 s at
+44.1 kHz in and out, so both resamplers are fractional) with
+OFFLINE_SETTINGS, f32, in chunks of OFFLINE_CHUNK_FRAMES frames (a carry
+between chunks).  `tests/test_torch_offline.py` regenerates it and
+requires it to match (`PYTHONPATH=. python tests/test_torch_offline.py`
+rewrites it); the port is held to it at atol 1e-3.
 """
 
 from __future__ import annotations
@@ -30,6 +39,12 @@ SEED = 0
 CONTROLS = [(0, 4, 0, 0.0), (3, 2, 4, 2.0), (5, 6, 8, -3.0), (7, 0, 1, 0.5)]
 F32_ATOL = 1e-3
 ENVELOPE = 2.0
+OFFLINE_RATE = 44100
+OFFLINE_SECONDS = 1.5
+OFFLINE_CHUNK_FRAMES = 64
+# ConversionSettings fields (the same for both packages)
+OFFLINE_SETTINGS = dict(target_speaker=3, formant_shift=0.5, pitch_shift=2.0,
+                        vq_num_neighbors=4)
 
 
 def swept_sine(seed: int = SEED, cap: int = CAPACITY, ticks: int = TICKS) -> np.ndarray:
@@ -40,6 +55,16 @@ def swept_sine(seed: int = SEED, cap: int = CAPACITY, ticks: int = TICKS) -> np.
     n = np.arange(480 * ticks) / 48000.0
     sweep = 0.3 * np.sin(2 * np.pi * (120 * n + 200 * n * n))
     return (sweep[None] + 0.02 * rng.standard_normal((cap, n.size))).astype(np.float32)
+
+
+def offline_signal(seed: int = SEED, seconds: float = OFFLINE_SECONDS,
+                   rate: int = OFFLINE_RATE) -> np.ndarray:
+    """A sine swept upward from 110 Hz plus noise from a numpy seed,
+    [seconds * rate] f32."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(int(seconds * rate)) / rate
+    sweep = 0.3 * np.sin(2 * np.pi * (110 * n + 60 * n * n))
+    return (sweep + 0.02 * rng.standard_normal(n.size)).astype(np.float32)
 
 
 def admit_all(engine) -> None:
@@ -53,13 +78,15 @@ def admit_all(engine) -> None:
         engine.set_control(i, "pitch_shift", np.float32(shift))
 
 
-def run(engine, to_numpy=np.asarray) -> np.ndarray:
-    """Admit the golden streams and run the golden ticks of `swept_sine`:
-    [TICKS, streams, 480]."""
+def run(engine, to_numpy=np.asarray, frames: int = TICKS) -> np.ndarray:
+    """Admit the golden streams and run `frames` frames of `swept_sine`
+    through the engine, `engine.cfg.frames_per_tick` frames a tick:
+    [ticks, streams, frames_per_tick * 480]."""
     admit_all(engine)
-    audio = swept_sine()
-    return np.stack([to_numpy(engine.tick(audio[:, 480 * k:480 * (k + 1)]))
-                     for k in range(TICKS)])
+    n = engine.cfg.frames_per_tick * 480
+    audio = swept_sine(ticks=frames)
+    return np.stack([to_numpy(engine.tick(audio[:, n * k:n * (k + 1)]))
+                     for k in range(frames * 480 // n)])
 
 
 def load(path) -> dict:

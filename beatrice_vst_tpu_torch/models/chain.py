@@ -1,6 +1,9 @@
-"""VoiceConverter: the per-frame stage chain PhoneExtractor -> VQ k-NN
-smoothing -> PitchEstimator -> pitch transform -> WaveformGenerator (port
-of `beatrice_vst_tpu/models/chain.py`, argmax mode, T = 1).
+"""VoiceConverter: the stage chain PhoneExtractor -> VQ k-NN smoothing ->
+PitchEstimator -> pitch transform -> WaveformGenerator over a chunk of T
+frames (port of `beatrice_vst_tpu/models/chain.py`), for 2.0.0-rc.0 and
+the older 2.0.0-alpha.2 and 2.0.0-beta.1 (no VQ, no attention).  The
+pitch is the argmax bin, or with soft_pitch its softmax expectation,
+transformed without rounding.
 
 Per-stream conditioning arrives as a `cond` dict:
 
@@ -10,7 +13,7 @@ Per-stream conditioning arrives as a `cond` dict:
   average_source_pitch, intonation_intensity, pitch_shift,
   pitch_correction  [B] float; pitch_correction_type [B] int
 
-with one of each pair of routes:
+and, for 2.0.0-rc.0, one of each pair of routes:
 
   kv_cache          {"k","v"(,"k_scale","v_scale")}: [B, n_blocks, 384, A(|1)]
                     the per-stream projected speaker KV, or
@@ -18,12 +21,16 @@ with one of each pair of routes:
                     each stream's slot [B]
   codebook(, codebook_scale)  [B, 512, 128] the stream's VQ codebook, or
   codebook_bank, codebook_idx(, codebook_bank_scale)  the model's bank
-                    [S, 512, 128] and each stream's speaker [B]
+                    [S, 512, 128] and each stream's speaker [B] (read
+                    through one-hot contractions at T = 1; at T > 1 each
+                    stream's codebook is gathered)
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..constants import V20RC0, VersionSpec
 from ..device import resolve_device
@@ -51,6 +58,35 @@ class VoiceConverterConfig:
         return cls(spec=spec)
 
 
+def init(gen: torch.Generator, cfg: VoiceConverterConfig, device="cuda"):
+    """Random parameters with the JAX package's tree, shapes, dtypes and
+    per-leaf distributions (`chain.py:57`), drawn from `gen` (a CPU
+    generator: one seed gives the same values on any device)."""
+    return {
+        "phone": phone_extractor.init(gen, cfg.phone, device),
+        "pitch": pitch_estimator.init(gen, cfg.pitch, device),
+        "wg": waveform_generator.init(gen, cfg.wg, device),
+    }
+
+
+def _smooth_phone(phone, cond):
+    """2.0.0-rc.0's VQ k-NN smoothing by the cond's codebook route
+    (`chain.py:183-203`)."""
+    if "codebook_bank" not in cond:
+        return phone_extractor.vq_knn_smooth(
+            phone, cond["codebook"], cond["vq_num_neighbors"],
+            codebook_scale=cond.get("codebook_scale"))
+    if phone.shape[1] == 1:
+        return phone_extractor.vq_knn_smooth_shared(
+            phone, cond["codebook_bank"], cond["codebook_idx"], cond["vq_num_neighbors"],
+            codebook_scale=cond.get("codebook_bank_scale"))
+    idx = cond["codebook_idx"]
+    scale = cond.get("codebook_bank_scale")
+    return phone_extractor.vq_knn_smooth(
+        phone, cond["codebook_bank"][idx], cond["vq_num_neighbors"],
+        codebook_scale=None if scale is None else scale[idx])
+
+
 def init_state(cfg: VoiceConverterConfig, batch_shape=(), device="cuda"):
     device = resolve_device(device)
     return {
@@ -60,23 +96,22 @@ def init_state(cfg: VoiceConverterConfig, batch_shape=(), device="cuda"):
     }
 
 
-def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype=None):
-    """audio16: [B, 160] at 16 kHz -> (audio24 [B, 240] at 24 kHz, state)
-    (`chain.py:128`)."""
+def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype=None,
+          soft_pitch: bool = False):
+    """audio16: [B, T*160] at 16 kHz -> (audio24 [B, T*240] at 24 kHz,
+    state) (`chain.py:128`).  soft_pitch conditions the vocoder on the
+    expected bin over the masked pitch logits (`chain.py:207-237`)."""
     spec = cfg.spec
     phone, phone_state = phone_extractor.apply(params["phone"], cfg.phone, audio16,
                                                state["phone"], compute_dtype)
-    if "codebook_bank" in cond:
-        phone = phone_extractor.vq_knn_smooth_shared(
-            phone, cond["codebook_bank"], cond["codebook_idx"], cond["vq_num_neighbors"],
-            codebook_scale=cond.get("codebook_bank_scale"))
-    else:
-        phone = phone_extractor.vq_knn_smooth(
-            phone, cond["codebook"], cond["vq_num_neighbors"],
-            codebook_scale=cond.get("codebook_scale"))
-    qp_raw, pitch_feats, pitch_state = pitch_estimator.apply(
+    if spec.has_vq:
+        phone = _smooth_phone(phone, cond)
+    pe_out = pitch_estimator.apply(
         params["pitch"], cfg.pitch, audio16, state["pitch"], cond["min_q"],
-        cond["max_q"], compute_dtype)
+        cond["max_q"], compute_dtype, with_logits=soft_pitch)
+    qp_raw, pitch_feats, pitch_state = pe_out[:3]
+    if soft_pitch:
+        qp_raw = pitch_estimator.expected_bin(pe_out[3], cond["min_q"], cond["max_q"])
     qp = transform_pitch(
         qp_raw,
         average_source_pitch=cond["average_source_pitch"][:, None],
@@ -85,9 +120,10 @@ def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype
         pitch_correction=cond["pitch_correction"][:, None],
         pitch_correction_type=cond["pitch_correction_type"][:, None],
         pitch_bins=spec.pitch_bins,
+        round_output=not soft_pitch,
     )
     audio24, wg_state = waveform_generator.apply(
         params["wg"], cfg.wg, phone, qp, pitch_feats, cond["speaker_embedding"],
         state["wg"], cond.get("kv_cache"), compute_dtype,
-        kv_bank=cond.get("kv_bank"), kv_slot=cond.get("kv_slot"))
+        kv_bank=cond.get("kv_bank"), kv_slot=cond.get("kv_slot"), soft_pitch=soft_pitch)
     return audio24, {"phone": phone_state, "pitch": pitch_state, "wg": wg_state}

@@ -12,6 +12,11 @@ keeps ring buffers instead (`layers.py:196-258`); a zero state is valid
 in both conventions and the outputs are the same, so the port needs no
 ring or layout knobs.
 
+The `*_init` functions draw parameters with the JAX package's shapes,
+dtypes and per-leaf distributions from an explicit CPU `torch.Generator`
+(the values differ from JAX's); the models' `init` functions move the tree
+to its device (`io.params_from_numpy`).
+
 Compute dtype (`compute_dtype=torch.bfloat16`), as in the JAX package:
 the operands of a product are rounded to it, products are summed in f32,
 the bias is added in f32 and the result is rounded once
@@ -27,6 +32,56 @@ import torch
 import torch.nn.functional as F
 
 _M32 = 0xFFFFFFFF
+
+
+def _uniform(gen, shape, scale):
+    """U(-scale, scale) in f32 from a CPU generator."""
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * scale
+
+
+def normal(gen, shape, scale):
+    """N(0, scale^2) in f32 from a CPU generator."""
+    return torch.randn(shape, generator=gen) * scale
+
+
+def linear_init(gen, in_dim: int, out_dim: int):
+    """w ~ U(+-1/sqrt(in)) [in, out], b = 0 (`layers.py:36`)."""
+    return {"w": _uniform(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim)),
+            "b": torch.zeros(out_dim)}
+
+
+def layer_norm_init(dim: int):
+    """g = 1, b = 0 (`layers.py:66`)."""
+    return {"g": torch.ones(dim), "b": torch.zeros(dim)}
+
+
+def causal_conv_init(gen, k: int, in_dim: int, out_dim: int):
+    """w ~ U(+-1/sqrt(k*in)) [k, in, out], b = 0 (`layers.py:81`)."""
+    return {"w": _uniform(gen, (k, in_dim, out_dim), 1.0 / math.sqrt(k * in_dim)),
+            "b": torch.zeros(out_dim)}
+
+
+def conv_block_init(gen, dim: int, k: int = 4):
+    """Pre-LN causal conv and a GELU MLP of width 2*dim (`layers.py:373`,
+    mlp_ratio 2 as every model uses)."""
+    return {"ln": layer_norm_init(dim),
+            "conv": causal_conv_init(gen, k, dim, dim),
+            "mlp_in": linear_init(gen, dim, 2 * dim),
+            "mlp_out": linear_init(gen, 2 * dim, dim)}
+
+
+def cross_attention_init(gen, dim: int, kv_dim: int, attn_dim: int):
+    """LN, q [dim, A], k and v [kv_dim, A], o [A, dim] (`layers.py:405`)."""
+    return {"ln": layer_norm_init(dim),
+            "q": linear_init(gen, dim, attn_dim),
+            "k": linear_init(gen, kv_dim, attn_dim),
+            "v": linear_init(gen, kv_dim, attn_dim),
+            "o": linear_init(gen, attn_dim, dim)}
+
+
+def snake_init(dim: int, alpha: float = 1.0):
+    """log_alpha = log(alpha) (`layers.py:579`)."""
+    return {"log_alpha": torch.full((dim,), math.log(alpha))}
 
 
 def matmul_f32(a, b):
@@ -71,7 +126,7 @@ def layer_norm(params, x, eps: float = 1e-5):
 
 def causal_conv(params, x, state, dilation: int = 1, compute_dtype=None):
     """Causal dilated conv over time, linear state convention
-    (`layers.py:196`).
+    (`layers.py:196`), for any chunk length T.
 
     x: [B, T, Cin]; state: [B, (k-1)*dilation, Cin] (past inputs, oldest
     first).  Tap j reads the input at time t - (k-1-j)*dilation.  Returns

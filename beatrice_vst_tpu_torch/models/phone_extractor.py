@@ -2,7 +2,8 @@
 frame -> phone vector (port of `beatrice_vst_tpu/models/phone_extractor.py`).
 
 Log-mel front end, a prenet, six dilated causal ConvNeXt blocks and an
-output projection; then the 2.0.0-rc.0 k-NN smoothing against the
+output projection to the version's phone channels (128 for 2.0.0-rc.0,
+256 for the older versions); then the 2.0.0-rc.0 k-NN smoothing against the
 stream's VQ codebook: a per-stream codebook (`vq_knn_smooth`) or the
 model's shared bank read through one-hot contractions
 (`vq_knn_smooth_shared`), each f32, bf16 or int8 with per-row scales.
@@ -18,12 +19,14 @@ from ..constants import VersionSpec
 from ..device import resolve_device
 from ..ops.frontend import MelFrontend
 from . import layers
+from .io import params_from_numpy
 
 MAX_NEIGHBORS = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class PhoneExtractorConfig:
+    phone_channels: int = 128
     n_mels: int = 80
     win: int = 512
     hidden: int = 256
@@ -32,11 +35,24 @@ class PhoneExtractorConfig:
 
     @classmethod
     def for_version(cls, spec: VersionSpec) -> "PhoneExtractorConfig":
-        return cls()
+        return cls(phone_channels=spec.phone_channels)
 
     @property
     def frontend(self) -> MelFrontend:
         return MelFrontend(win=self.win, n_mels=self.n_mels)
+
+
+def init(gen: torch.Generator, cfg: PhoneExtractorConfig, device="cuda"):
+    """Random parameters with the JAX package's tree, shapes and
+    distributions (`phone_extractor.py:53`), drawn from `gen`."""
+    params = {
+        "prenet": layers.linear_init(gen, cfg.n_mels, cfg.hidden),
+        "blocks": [layers.conv_block_init(gen, cfg.hidden, cfg.kernel)
+                   for _ in cfg.dilations],
+        "out_ln": layers.layer_norm_init(cfg.hidden),
+        "out": layers.linear_init(gen, cfg.hidden, cfg.phone_channels),
+    }
+    return params_from_numpy(params, device)
 
 
 def init_state(cfg: PhoneExtractorConfig, batch_shape=(), device="cuda"):

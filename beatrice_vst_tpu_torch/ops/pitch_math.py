@@ -4,6 +4,9 @@
     tmp = avg_src + (q - avg_src) * intonation + 8 * pitch_shift
     if correction != 0: snap toward the nearest semitone (two curve types)
     q_out = clamp(round(tmp), 1, pitch_bins - 1)
+
+or, for soft pitch, q_out = clamp(tmp, 1, pitch_bins - 1) without the
+rounding.
 """
 
 from __future__ import annotations
@@ -39,12 +42,13 @@ def pitch_correction_type1(pitch, correction):
 
 def transform_pitch(quantized_pitch, *, average_source_pitch,
                     intonation_intensity, pitch_shift, pitch_correction,
-                    pitch_correction_type, pitch_bins: int):
+                    pitch_correction_type, pitch_bins: int, round_output: bool = True):
     """Full per-frame pitch transform (`pitch_math.py:52`).
 
     All arguments broadcast against `quantized_pitch`; `pitch_shift` is in
     semitones and `average_source_pitch` in bins.  Returns int64 bins in
-    [1, pitch_bins - 1].
+    [1, pitch_bins - 1], or with round_output=False (soft pitch,
+    `pitch_math.py:86-90`) the continuous f32 bins clipped to that range.
     """
     q = quantized_pitch.to(torch.float32)
     tmp = (average_source_pitch
@@ -54,4 +58,6 @@ def transform_pitch(quantized_pitch, *, average_source_pitch,
     c1 = pitch_correction_type1(tmp, pitch_correction)
     corrected = torch.where(pitch_correction_type == 0, c0, c1)
     tmp = torch.where(pitch_correction != 0.0, corrected, tmp)
+    if not round_output:
+        return torch.clamp(tmp, 1.0, float(pitch_bins - 1))
     return torch.clamp(torch.round(tmp), 1, pitch_bins - 1).to(torch.int64)

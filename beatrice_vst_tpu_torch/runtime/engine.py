@@ -1,15 +1,19 @@
-"""StreamEngine: the batched real-time tick (port of
+"""StreamEngine: the batched tick (port of
 `beatrice_vst_tpu/runtime/engine.py`).
 
-A fixed-capacity table of streams advances together, one 10 ms tick at a
-time:
+A fixed-capacity table of streams advances together, T = frames_per_tick
+10 ms frames per tick (T = 1 is the real-time tick; a tick of T > 1
+frames is the chunk path that offline conversion and the parity harness
+run):
 
-    audio48 in [B, 480] -> sanitize -> input gain -> 48k->16k resample ->
+    audio48 in [B, T*480] -> sanitize -> input gain -> 48k->16k resample ->
     chain (phone/pitch/vocoder) -> 24k->48k resample -> output gain ->
-    mute inactive -> audio48 out [B, 480]
+    mute inactive -> audio48 out [B, T*480]
 
-`EngineConfig` has the JAX engine's fields, names and defaults, less
-`frames_per_tick` (T = 1 only).  What this port honours of them:
+It runs the three model versions: 2.0.0-rc.0, and 2.0.0-alpha.2 and
+2.0.0-beta.1, which have no K/V and no VQ conditioning.
+`EngineConfig` has the JAX engine's fields, names and defaults.  What
+this port honours of them:
   * compute_dtype None (f32) or "bfloat16": activations and conv carries
     in bf16, products summed in f32; resamplers, gains, mel front ends,
     pitch logits and the source phase stay f32.
@@ -18,7 +22,7 @@ time:
     n_morph_slots zero slots for morphing) or "per_stream" (a projected
     K/V cache per stream); with a compute dtype and quantize_kv_cache,
     int8 with per-row scales (and int8 contractions in slots mode).
-  * vq_shared_bank None (shared while the bank has at most
+  * vq_shared_bank None (shared while T = 1 and the bank has at most
     vq_shared_max_speakers speakers), True or False; with a compute dtype
     and quantize_conditioning, an int8 codebook with per-row scales.
 Not ported yet: morphing (morph-slot leasing, `refresh_kv_slots`, the
@@ -61,6 +65,7 @@ KV_CACHE_MODES = ("slots", "per_stream")
 class EngineConfig:
     capacity: int  # stream slots (static batch)
     model: VoiceConverterConfig
+    frames_per_tick: int = 1  # T; 1 = real-time 10 ms ticks
     compute_dtype: str | None = None  # None (f32) or "bfloat16"
     # int8 VQ codebooks with per-row scales (only with compute_dtype)
     quantize_conditioning: bool = True
@@ -69,7 +74,7 @@ class EngineConfig:
     quantize_kv_cache: bool = True
     kv_cache_mode: str = "slots"  # "slots" or "per_stream"
     n_morph_slots: int = 16
-    # shared-bank VQ: None = on while the bank has at most
+    # shared-bank VQ: None = on while T = 1 and the bank has at most
     # vq_shared_max_speakers speakers; True/False forces
     vq_shared_bank: bool | None = None
     vq_shared_max_speakers: int = 128
@@ -81,6 +86,8 @@ class EngineConfig:
         if self.compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port computes in "
                              "float32 (None) or bfloat16")
+        if self.frames_per_tick < 1:
+            raise ValueError(f"frames_per_tick {self.frames_per_tick} < 1")
 
     @classmethod
     def realtime(cls, capacity: int, spec: VersionSpec = V20RC0,
@@ -100,7 +107,7 @@ class EngineConfig:
 
     @property
     def samples_per_tick(self) -> int:
-        return COMMON_HOP_LENGTH
+        return self.frames_per_tick * COMMON_HOP_LENGTH
 
     @property
     def dtype(self):
@@ -109,10 +116,11 @@ class EngineConfig:
 
     def use_shared_vq(self, n_speakers: int) -> bool:
         """Whether the VQ reads the shared bank (`engine.py:304-315`),
-        decided on the host from the config and the bank's size."""
+        decided on the host from the config and the bank's size: by
+        default only at T = 1 (a chunk gathers each stream's codebook)."""
         if self.vq_shared_bank is not None:
             return self.vq_shared_bank
-        return n_speakers <= self.vq_shared_max_speakers
+        return self.frames_per_tick == 1 and n_speakers <= self.vq_shared_max_speakers
 
 
 def _cast_activation_state(model_state, dtype):
@@ -146,9 +154,9 @@ def _kv_tensors(shape, quantized, dtype, device):
 def init_engine_state(cfg: EngineConfig, device="cuda"):
     """Zero per-stream state on `device` (the card unless the caller asks
     for the CPU): chain carries (in the compute dtype), resampler
-    histories, gain states, controls, and the K/V of the config's mode --
-    the morph slots of the slot bank, or the per-stream projected cache
-    (`engine.py:125`)."""
+    histories, gain states, controls, and for a version with K/V the K/V
+    of the config's mode -- the morph slots of the slot bank, or the
+    per-stream projected cache (`engine.py:125`)."""
     device = resolve_device(device)
     b = (cfg.capacity,)
     wg = cfg.model.wg
@@ -159,12 +167,14 @@ def init_engine_state(cfg: EngineConfig, device="cuda"):
         cond_dtype = cfg.dtype
     state = {
         "model": model_state,
-        "rs_in": input_resampler_48k_to_16k().init_state(b, device),
-        "rs_out": output_resampler_24k_to_48k().init_state(b, device),
+        "rs_in": input_resampler_48k_to_16k(cfg.frames_per_tick).init_state(b, device),
+        "rs_out": output_resampler_24k_to_48k(cfg.frames_per_tick).init_state(b, device),
         "gain_in_db": torch.zeros(b, device=device),
         "gain_out_db": torch.zeros(b, device=device),
         "controls": init_controls(cfg.spec, cfg.capacity, device),
     }
+    if not cfg.spec.has_kv:
+        return state
     quantized = cfg.quantize_kv_cache and cfg.dtype is not None
     rows = cfg.n_morph_slots if cfg.kv_cache_mode == "slots" else cfg.capacity
     kv = _kv_tensors((rows, wg.n_blocks, cfg.spec.kv_length, wg.attn_dim), quantized,
@@ -207,8 +217,8 @@ def cast_bank(bank, dtype=None, quantize_codebook: bool = False, device="cuda"):
 
 def _build_cond(cfg: EngineConfig, bank, state):
     """One tick's per-stream conditioning (`engine.py:225`): additive +
-    formant embedding (f32), the K/V of the config's mode and the VQ
-    codebook route (shared bank or per-stream gather)."""
+    formant embedding (f32) and, for 2.0.0-rc.0, the K/V of the config's
+    mode and the VQ codebook route (shared bank or per-stream gather)."""
     c = state["controls"]
     additive, cb_idx = morpher.select_conditioning(
         bank, c["target_speaker"], c["formant_index"])
@@ -217,15 +227,17 @@ def _build_cond(cfg: EngineConfig, bank, state):
         "intonation_intensity", "pitch_shift", "pitch_correction",
         "pitch_correction_type")}
     cond["speaker_embedding"] = additive
-    if "kv_slots" in state:
+    if "kv_slots" in state:  # (no K/V state without attention)
         slots = state["kv_slots"]
         cond["kv_bank"] = {name: torch.cat([bank[f"kv_proj_{name}"], slots[name]])
                            for name in slots}
         n = bank["additive"].shape[0]
         target = c["target_speaker"]
         cond["kv_slot"] = torch.where(target >= n, c["kv_slot"], torch.clamp(target, 0, n - 1))
-    else:
+    elif "kv_cache" in state:
         cond["kv_cache"] = state["kv_cache"]
+    if not cfg.spec.has_vq:
+        return cond
     if cfg.use_shared_vq(bank["codebook"].shape[0]):
         cond["codebook_bank"] = bank["codebook"]
         cond["codebook_idx"] = cb_idx
@@ -239,20 +251,20 @@ def _build_cond(cfg: EngineConfig, bank, state):
 
 
 def engine_tick(params, bank, state, audio48, *, cfg: EngineConfig):
-    """One tick: [B, 480] at 48 kHz in -> ([B, 480] at 48 kHz out, new
+    """One tick: [B, T*480] at 48 kHz in -> ([B, T*480] at 48 kHz out, new
     state) (`engine.py:331`).  params and bank as `StreamEngine` holds
-    them (`cast_params`, `cast_bank` and, in slots mode, the projected
-    base speakers `kv_proj_*`)."""
+    them (`cast_params` and `prepare_bank`)."""
     c = state["controls"]
     # a client feeding NaN/inf or absurd amplitudes only hurts its own
     # stream, and only for this block
     audio48 = torch.clamp(torch.nan_to_num(audio48, nan=0.0, posinf=0.0, neginf=0.0),
                           -4.0, 4.0)
     x, gain_in_db = gain_process(audio48, state["gain_in_db"], c["input_gain_db"], 48000.0)
-    x16, rs_in_state = input_resampler_48k_to_16k().apply_block(x, state["rs_in"])
+    t = cfg.frames_per_tick
+    x16, rs_in_state = input_resampler_48k_to_16k(t).apply_block(x, state["rs_in"])
     cond = _build_cond(cfg, bank, state)
     y24, model_state = chain.apply(params, cfg.model, x16, state["model"], cond, cfg.dtype)
-    y48, rs_out_state = output_resampler_24k_to_48k().apply_block(y24, state["rs_out"])
+    y48, rs_out_state = output_resampler_24k_to_48k(t).apply_block(y24, state["rs_out"])
     y48, gain_out_db = gain_process(y48, state["gain_out_db"], c["output_gain_db"], 48000.0)
     y48 = torch.where(c["active"][:, None], y48, 0.0)
     return y48, {
@@ -330,12 +342,24 @@ def project_base_speakers(params, bank, cfg: EngineConfig) -> dict:
     return out
 
 
+def prepare_bank(cfg: EngineConfig, params, bank, device="cuda") -> dict:
+    """The speaker bank as the tick reads it (`engine.py:623-640`): cast by
+    `cast_bank` and, in slots mode for a version with K/V, with the bank's
+    speakers projected by `project_base_speakers`.  params as
+    `cast_params` gives them."""
+    out = cast_bank(bank, cfg.dtype, cfg.quantize_conditioning and cfg.dtype is not None,
+                    device)
+    if cfg.kv_cache_mode == "slots" and cfg.spec.has_kv:
+        out.update(project_base_speakers(params, out, cfg))
+    return out
+
+
 class StreamEngine:
     """Host-side wrapper: owns params, bank and state, the stream table
     (admit/evict) and the control stage.
 
-    Typical loop, one tick per 10 ms:
-        out48 = engine.tick(in48)   # [capacity, 480] -> [capacity, 480]
+    Typical loop, one tick per T * 10 ms:
+        out48 = engine.tick(in48)   # [capacity, T*480] -> [capacity, T*480]
     (tick flushes staged control edits first).
     """
 
@@ -343,11 +367,8 @@ class StreamEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = cast_params(params_from_numpy(params, self.device), cfg.dtype)
-        self.bank = cast_bank(bank, cfg.dtype,
-                              cfg.quantize_conditioning and cfg.dtype is not None, self.device)
-        self._slots_mode = cfg.kv_cache_mode == "slots"
-        if self._slots_mode:
-            self.bank.update(project_base_speakers(self.params, self.bank, cfg))
+        self.bank = prepare_bank(cfg, self.params, bank, self.device)
+        self._slots_mode = cfg.kv_cache_mode == "slots" and cfg.spec.has_kv
         self._n_speakers = self.bank["additive"].shape[0]
         self.state = init_engine_state(cfg, self.device)
         self.stage = ControlStage()
@@ -400,16 +421,16 @@ class StreamEngine:
 
     def flush_controls(self) -> None:
         """Apply staged edits, reset admitted slots and, in per-stream
-        mode, refresh the K/V cache of streams whose speaker changed (in
-        slots mode a direct speaker's slot follows target_speaker inside
-        the tick)."""
+        mode for a version with K/V, refresh the K/V cache of streams
+        whose speaker changed (in slots mode a direct speaker's slot
+        follows target_speaker inside the tick)."""
         if self.stage.pending():
             apply_control_updates(self.state, self.stage.drain())
         if self._pending_reset:
             idx = torch.as_tensor(sorted(self._pending_reset), device=self.device)
             reset_streams(self.state, idx)
             self._pending_reset.clear()
-        if self._kv_dirty and not self._slots_mode:
+        if self._kv_dirty and "kv_cache" in self.state:
             idx = torch.as_tensor(sorted(self._kv_dirty), device=self.device)
             refresh_kv_cache(self.params, self.bank, self.state, idx, self.cfg.dtype)
         self._kv_dirty.clear()
@@ -417,8 +438,8 @@ class StreamEngine:
     # ---- the tick ----
 
     def tick(self, audio48_in) -> torch.Tensor:
-        """audio48_in: [capacity, 480] (numpy or tensor) -> [capacity, 480]
-        on the engine's device."""
+        """audio48_in: [capacity, T*480] (numpy or tensor) -> [capacity,
+        T*480] on the engine's device."""
         x = torch.as_tensor(audio48_in, dtype=torch.float32, device=self.device)
         expect = (self.cfg.capacity, self.cfg.samples_per_tick)
         if tuple(x.shape) != expect:
@@ -426,7 +447,8 @@ class StreamEngine:
         self.flush_controls()
         t0 = time.perf_counter()
         out, self.state = engine_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
-        self.metrics.record_tick(time.perf_counter() - t0, self.n_active)
+        self.metrics.record_tick(time.perf_counter() - t0, self.n_active,
+                                 self.cfg.frames_per_tick)
         return out
 
     def metrics_snapshot(self) -> dict:

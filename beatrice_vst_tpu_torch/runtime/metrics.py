@@ -25,10 +25,12 @@ class EngineMetrics:
         self.underruns = 0
         self.started = time.monotonic()
 
-    def record_tick(self, duration_s: float, n_active: int) -> None:
+    def record_tick(self, duration_s: float, n_active: int, frames_per_tick: int) -> None:
+        """One tick of `frames_per_tick` frames per active stream: its
+        budget is that many 10 ms frames (`metrics.py:29-32`)."""
         self.ticks += 1
-        self.frames += n_active
-        if duration_s > FRAME_BUDGET_S:
+        self.frames += n_active * frames_per_tick
+        if duration_s > FRAME_BUDGET_S * frames_per_tick:
             self.underruns += 1
         self._tick_times.append(duration_s)
         if len(self._tick_times) > self.window:

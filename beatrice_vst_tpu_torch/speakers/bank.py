@@ -1,8 +1,9 @@
-"""Speaker bank loader: `speakers.npz` -> dict of tensors (port of
-`beatrice_vst_tpu/speakers/bank.py:66 load`, npz format).
+"""Speaker banks: the `speakers.npz` loader (port of
+`beatrice_vst_tpu/speakers/bank.py:66 load`, npz format) and
+`random_bank` for models without trained weights.
 
-2.0.0-rc.0 contents: additive [n, 256], formant [9, 256],
-codebook [n, 512, 128], kv [n, 384, 128].
+Contents: additive [n, 256] and formant [9, 256]; 2.0.0-rc.0 adds
+codebook [n, 512, 128] and kv [n, 384, 128].
 """
 
 from __future__ import annotations
@@ -12,9 +13,32 @@ import os
 import numpy as np
 import torch
 
-from ..constants import MAX_N_SPEAKERS, VersionSpec, WAVEFORM_GENERATOR_HIDDEN_CHANNELS as HID
+from ..constants import (MAX_N_SPEAKERS, N_FORMANT_SHIFT_EMBEDDINGS, VersionSpec,
+                         WAVEFORM_GENERATOR_HIDDEN_CHANNELS as HID)
 from ..device import resolve_device
 from ..errors import BeatriceError, ErrorCode
+
+
+def random_bank(gen: torch.Generator, spec: VersionSpec, n_speakers: int, scale: float = 0.5,
+                device="cuda"):
+    """A random bank with the JAX package's keys, shapes and distributions
+    (`bank.py:36`), drawn from `gen` (a CPU generator): additive
+    N(0, scale^2), formant N(0, (scale/5)^2), codebook N(0, 1), kv
+    N(0, scale^2)."""
+    if not 1 <= n_speakers <= MAX_N_SPEAKERS:
+        raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE, str(n_speakers))
+    bank = {
+        "additive": torch.randn((n_speakers, HID), generator=gen) * scale,
+        "formant": torch.randn((N_FORMANT_SHIFT_EMBEDDINGS, HID), generator=gen) * (scale * 0.2),
+    }
+    if spec.has_vq:
+        bank["codebook"] = torch.randn((n_speakers, spec.codebook_size, spec.phone_channels),
+                                       generator=gen)
+    if spec.has_kv:
+        bank["kv"] = torch.randn((n_speakers, spec.kv_length, spec.kv_channels),
+                                 generator=gen) * scale
+    dev = resolve_device(device)
+    return {k: v.to(dev) for k, v in bank.items()}
 
 
 def n_speakers(bank) -> int:

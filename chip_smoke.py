@@ -35,10 +35,34 @@ Phases, each printing one line with its seconds:
                 golden.py) held to the JAX engine's output in
                 tests/data/torch_engine_golden.npz: f32 at atol 1e-3, bf16
                 by the envelope.
-  5. profile -- only with `--profile DIR`: where the engine's tick time
+  5. parity  -- the port's run_parity (beatrice_vst_tpu_torch/parity.py) on
+                klatt8, slots f32, capacity 256: one tick of 25 frames
+                (the stage loop) against 25 real-time ticks (the f32
+                kernel), max |d| <= 1e-3, the f32 kernel launched 25
+                times in the streaming half and never in the chunk tick;
+                each half's span per 10 ms of audio, host ms and peak
+                memory, run twice (the first warms up).  Then the engine
+                at frames_per_tick = 25: CHUNK_TICKS ticks with CUDA
+                events (median and p90 tick, host ms per tick), and a few
+                ticks under torch.profiler (device launches and
+                device-busy ms per tick).
+  6. offline -- runtime/offline.py:convert_utterance on klatt8 (f32, chunks
+                of 64 frames) of golden.offline_signal (1.5 s at 44.1 kHz
+                in and out) held to tests/data/torch_offline_golden.npz
+                (the JAX package's output) at atol 1e-3; audio seconds
+                converted per second, on the second of two runs.
+  7. versions -- 2.0.0-alpha.2 and 2.0.0-beta.1 on random parameters and
+                banks from the port's chain.init and random_bank at fixed
+                seeds, capacity 256: the kernel engine against the
+                plain-upsampler engine over 20 ticks at 1e-4, the f32 form
+                launched once per tick; then run_parity at 25 frames at
+                1e-3.
+  8. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
-Then the kernels line, the card line, and the last line
+Then the kernels line (each form's launches summed over every path that
+drove it: the engine configurations, the streaming halves of parity and
+the older versions' engines), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -46,6 +70,7 @@ torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import platform
@@ -85,6 +110,19 @@ KERNEL_NAME = {"float32": "fused_upsampler", "bfloat16": "fused_upsampler_bf16"}
 COUNTER = {"float32": "launches", "bfloat16": "launches_bf16"}
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_engine_golden.npz")
+OFFLINE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_offline_golden.npz")
+MODEL_DIR = os.path.join(HERE, "models_demo", "klatt8")
+CHUNK = 25  # frames per tick of the chunk path
+CHUNK_TICKS = 12  # T = 25 engine ticks timed, after 2 of warm-up
+CHUNK_PROFILE_TICKS = 3
+PARITY_TOL = 1e-3  # the JAX harness's gate
+# parity's controls, the same for every stream: a speaker, a formant, VQ
+# smoothing (the shared bank at T = 1, gathered codebooks at T = 25) and
+# a pitch shift
+PARITY_CONTROLS = {"target_speaker": 3, "formant_index": 2, "vq_num_neighbors": 4,
+                   "pitch_shift": 2.0}
+VERSION_TICKS = 20
+VERSION_SEED = 7
 
 
 def log(phase, t0, **fields):
@@ -304,44 +342,113 @@ def kernel_phase(device, dtype_name):
     return entry
 
 
-def build_engine(device, config, upsampler_kernel=True, capacity=CAPACITY, controls=True):
-    """The port's StreamEngine in the named configuration on the klatt8
-    weights; with `controls`, every stream admitted with its own speaker,
-    formant, VQ neighbours and pitch shift."""
+def klatt8(device):
+    """The klatt8 weights and speaker bank on the card."""
     from beatrice_vst_tpu_torch.constants import V20RC0
     from beatrice_vst_tpu_torch.models.io import load_weights
+    from beatrice_vst_tpu_torch.speakers import bank as bank_mod
+
+    return (load_weights(os.path.join(MODEL_DIR, "weights.npz"), device=device),
+            bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=device))
+
+
+def admit_all(engine, n_speakers):
+    """Admit every stream with its own speaker, formant, VQ neighbours and
+    pitch shift."""
+    for i in range(engine.cfg.capacity):
+        engine.admit()
+        engine.set_control(i, "target_speaker", i % n_speakers)
+        engine.set_control(i, "formant_index", (i // n_speakers) % 9)
+        engine.set_control(i, "vq_num_neighbors", i % 5)
+        engine.set_control(i, "pitch_shift", float((i % 7) - 3))
+
+
+def build_engine(device, config, upsampler_kernel=True, capacity=CAPACITY, controls=True,
+                 frames_per_tick=1):
+    """The port's StreamEngine in the named configuration on the klatt8
+    weights; with `controls`, every stream admitted by `admit_all`."""
     from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
     from beatrice_vst_tpu_torch.speakers import bank as bank_mod
 
-    model_dir = os.path.join(HERE, "models_demo", "klatt8")
-    params = load_weights(os.path.join(model_dir, "weights.npz"), device=device)
-    bank = bank_mod.load(os.path.join(model_dir, "speakers.npz"), V20RC0, device=device)
+    params, bank = klatt8(device)
     cfg = EngineConfig.realtime(capacity, upsampler_kernel=upsampler_kernel,
-                                **ENGINE_CONFIGS[config][0])
+                                frames_per_tick=frames_per_tick, **ENGINE_CONFIGS[config][0])
     engine = StreamEngine(cfg, params, bank, device=device)
     if controls:
-        n_spk = bank_mod.n_speakers(bank)
-        for i in range(capacity):
-            engine.admit()
-            engine.set_control(i, "target_speaker", i % n_spk)
-            engine.set_control(i, "formant_index", (i // n_spk) % 9)
-            engine.set_control(i, "vq_num_neighbors", i % 5)
-            engine.set_control(i, "pitch_shift", float((i % 7) - 3))
+        admit_all(engine, bank_mod.n_speakers(bank))
     return engine
 
 
-def engine_audio(device):
-    """[TICKS, CAPACITY, 480] at 48 kHz on the card: a swept sine (each
+def engine_audio(device, frames=TICKS):
+    """[frames, CAPACITY, 480] at 48 kHz on the card: a swept sine (each
     stream its own start frequency) plus noise from a numpy seed."""
     import torch
 
     rng = np.random.default_rng(1)
-    n = np.arange(TICKS * 480) / 48000.0
+    n = np.arange(frames * 480) / 48000.0
     f0 = rng.uniform(90.0, 300.0, CAPACITY)[:, None]
     x = 0.3 * np.sin(2 * np.pi * (f0 * n + 150.0 * n * n))
     x = x + 0.02 * rng.standard_normal(x.shape)
-    x = x.astype(np.float32).reshape(CAPACITY, TICKS, 480).transpose(1, 0, 2)
+    x = x.astype(np.float32).reshape(CAPACITY, frames, 480).transpose(1, 0, 2)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def utterance(audio):
+    """[frames, B, 480] -> [B, frames * 480]: each stream's frames in a row."""
+    return audio.permute(1, 0, 2).reshape(audio.shape[1], -1).contiguous()
+
+
+def launch_counts():
+    """Each kernel form's launches since the counts were last set to 0."""
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    return {form: getattr(FU, COUNTER[form]) for form in COUNTER}
+
+
+def reset_launch_counts():
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    FU.launches = FU.launches_bf16 = 0
+
+
+class Spans:
+    """A `run_parity` timer: for each named block, its span from CUDA
+    events, the host's time to enqueue it, each kernel form's launches
+    and the peak memory."""
+
+    def __init__(self):
+        self.out = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        yield
+        host_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        self.out[name] = {"span_ms": start.elapsed_time(end), "host_ms": host_ms,
+                          "launches": {k: v - before[k] for k, v in launch_counts().items()},
+                          "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def check_parity(report, spans, label):
+    """The parity gate and the f32 kernel's launches: one per streaming
+    tick, none in the chunk tick.  Returns the f32 form's launches."""
+    if not report.passed:
+        raise AssertionError(f"{label}: {report}")
+    n = report.n_frames
+    stream, chunk = spans.out["stream"]["launches"], spans.out["chunk"]["launches"]
+    if stream != {"float32": n, "bfloat16": 0} or sum(chunk.values()) != 0:
+        raise AssertionError(f"{label}: kernel launches {stream} in {n} streaming ticks and "
+                             f"{chunk} in the chunk tick; expected {n} f32 and 0")
+    return stream["float32"]
 
 
 def golden_check(device, config):
@@ -369,7 +476,6 @@ def engine_phase(device, config):
     counts set to 0 just before and read just after; returns the launches
     of its kernel form."""
     import torch
-    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
     t0 = time.perf_counter()
     form = ENGINE_CONFIGS[config][1]
@@ -383,7 +489,7 @@ def engine_phase(device, config):
     kept = []
     tick_ms = []
     host_ms = []
-    FU.launches = FU.launches_bf16 = 0
+    reset_launch_counts()
     for k in range(TICKS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -397,7 +503,7 @@ def engine_phase(device, config):
             kept.append(out.clone())
         tick_ms.append((start, end))
     torch.cuda.synchronize()
-    counts = {form_name: getattr(FU, COUNTER[form_name]) for form_name in COUNTER}
+    counts = launch_counts()
     if counts[form] != TICKS or sum(counts.values()) != TICKS:
         raise AssertionError(f"{config}: kernel launches {counts} in {TICKS} ticks, "
                              f"expected {TICKS} of the {form} form only")
@@ -414,7 +520,7 @@ def engine_phase(device, config):
     for k in range(COMPARE_TICKS):
         out = plain.tick(audio[k])
         diff = max(diff, float((out - kept[k]).abs().max()))
-    if getattr(FU, COUNTER[form]) != counts[form]:
+    if launch_counts()[form] != counts[form]:
         raise AssertionError(f"{config}: the plain-upsampler engine launched the kernel")
     if not np.isfinite(diff) or diff > tol:
         raise AssertionError(f"{config}: kernel engine vs plain engine: max|d| {diff} > {tol}")
@@ -426,6 +532,183 @@ def engine_phase(device, config):
         peak_mib=peak_mib, plain_engine_ticks=COMPARE_TICKS,
         plain_engine_max_abs_diff=diff, tol=tol, golden=golden_check(device, config))
     return counts[form]
+
+
+def parity_phase(device):
+    """run_parity on klatt8, slots f32, capacity 256, 25 frames (twice,
+    the second timed), then the engine at frames_per_tick = 25.  Returns
+    the f32 form's launches in the streaming halves."""
+    import torch
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.parity import run_parity
+
+    t0 = time.perf_counter()
+    params, bank = klatt8(device)
+    cfg = VoiceConverterConfig.for_version(V20RC0)
+    audio = utterance(engine_audio(device, CHUNK))
+    launches = 0
+    runs = []
+    for _ in range(2):
+        spans = Spans()
+        reset_launch_counts()
+        report = run_parity(params, cfg, bank, audio, tolerance=PARITY_TOL,
+                            controls=PARITY_CONTROLS, device=device, timer=spans)
+        launches += check_parity(report, spans, "parity on klatt8")
+        runs.append({"max_abs_diff": report.max_abs_diff, "rms_diff": report.rms_diff,
+                     **{f"{half}_{k}": v for half, s in spans.out.items()
+                        for k, v in s.items()}})
+    timed = runs[-1]
+    per_10ms = {f"{half}_span_ms_per_10ms_audio": timed[f"{half}_span_ms"] / CHUNK
+                for half in ("stream", "chunk")}
+    log("parity", t0, model="klatt8", config="slots_f32", capacity=CAPACITY, frames=CHUNK,
+        tol=PARITY_TOL, controls=PARITY_CONTROLS, runs=runs, **per_10ms,
+        chunk_engine=chunk_engine(device))
+    return launches
+
+
+def chunk_engine(device):
+    """The engine at frames_per_tick = 25, slots f32, capacity 256:
+    CHUNK_TICKS ticks after 2 of warm-up, each between CUDA events; then
+    CHUNK_PROFILE_TICKS ticks under torch.profiler.  Every output finite
+    and not silent; the kernel never launched (the chunk head is the
+    stage loop)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = build_engine(device, "slots_f32", frames_per_tick=CHUNK)
+    frames = (2 + CHUNK_TICKS + CHUNK_PROFILE_TICKS) * CHUNK
+    audio = engine_audio(device, frames).reshape(-1, CHUNK, CAPACITY, 480)
+    ticks = [utterance(a) for a in audio]
+    engine.flush_controls()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    spans, host_ms, outs = [], [], []
+    for k in range(2 + CHUNK_TICKS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        out = engine.tick(ticks[k])
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        end.record()
+        outs.append(out.abs().max())
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    peaks = torch.stack(outs)
+    if not bool(torch.isfinite(peaks).all()) or float(peaks.min()) <= 1e-3:
+        raise AssertionError(f"T = {CHUNK} engine: output not finite or silent: {peaks}")
+    if sum(launch_counts().values()):
+        raise AssertionError(f"T = {CHUNK} engine launched the kernel: {launch_counts()}")
+    times = [s.elapsed_time(e) for s, e in spans[2:]]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(2 + CHUNK_TICKS, len(ticks)):
+            engine.tick(ticks[k])
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    n = CHUNK_PROFILE_TICKS
+    return {"frames_per_tick": CHUNK, "ticks": CHUNK_TICKS,
+            "median_tick_ms": float(np.median(times)), "p90_tick_ms": float(np.percentile(times, 90)),
+            "median_host_ms": float(np.median(host_ms[2:])),
+            "median_tick_ms_per_10ms_audio": float(np.median(times)) / CHUNK,
+            "implied_streams_per_10ms": CAPACITY * CHUNK * 10.0 / float(np.median(times)),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "profiled_ticks": CHUNK_PROFILE_TICKS,
+            "device_launches_per_tick": sum(c for _, c, _ in rows) / n,
+            "device_busy_ms_per_tick": sum(us for us, _, _ in rows) / n / 1e3,
+            "top": [{"kernel": key[:100], "ms_per_tick": us / n / 1e3, "launches_per_tick": c / n}
+                    for us, c, key in rows[:12]]}
+
+
+def offline_phase(device):
+    """convert_utterance on klatt8 against the JAX package's output in
+    tests/data/torch_offline_golden.npz, and its speed."""
+    import torch
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+
+    t0 = time.perf_counter()
+    params, bank = klatt8(device)
+    cfg = VoiceConverterConfig.for_version(V20RC0)
+    signal = golden.offline_signal()
+    want = golden.load(OFFLINE_GOLDEN)["f32"]
+    seconds = []
+    for _ in range(2):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = convert_utterance(params, cfg, bank, signal, golden.OFFLINE_RATE,
+                                ConversionSettings(**golden.OFFLINE_SETTINGS),
+                                chunk_frames=golden.OFFLINE_CHUNK_FRAMES, device=device)
+        seconds.append(time.perf_counter() - t)
+        dev = golden.deviation(got, want)
+        if got.shape != want.shape or not dev["max"] <= golden.F32_ATOL:
+            raise AssertionError(f"offline vs the golden file: shape {got.shape} "
+                                 f"(want {want.shape}), {dev} > {golden.F32_ATOL}")
+    audio_s = len(signal) / golden.OFFLINE_RATE
+    log("offline", t0, model="klatt8", rate=golden.OFFLINE_RATE, audio_seconds=audio_s,
+        chunk_frames=golden.OFFLINE_CHUNK_FRAMES, vs_golden=dev, tol=golden.F32_ATOL,
+        seconds=seconds, audio_seconds_per_second=audio_s / seconds[-1],
+        kernel_launches=launch_counts())
+
+
+def versions_phase(device):
+    """The older versions' engines at capacity 256 on random parameters:
+    kernel against plain upsampler, then parity.  Returns the f32 form's
+    launches on these paths."""
+    import torch
+    from beatrice_vst_tpu_torch.constants import V20A2, V20B1
+    from beatrice_vst_tpu_torch.models import chain
+    from beatrice_vst_tpu_torch.parity import run_parity
+    from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
+    from beatrice_vst_tpu_torch.speakers import bank as bank_mod
+
+    audio = engine_audio(device, max(VERSION_TICKS, CHUNK))
+    launches = 0
+    for spec in (V20A2, V20B1):
+        t0 = time.perf_counter()
+        cfg = chain.VoiceConverterConfig.for_version(spec)
+        seed = VERSION_SEED + spec.version_int
+        params = chain.init(torch.Generator().manual_seed(seed), cfg, device)
+        bank = bank_mod.random_bank(torch.Generator().manual_seed(seed + 100), spec, 8,
+                                    device=device)
+        outs = {}
+        for kernel in (True, False):
+            engine = StreamEngine(EngineConfig.realtime(CAPACITY, spec=spec,
+                                                        upsampler_kernel=kernel),
+                                  params, bank, device=device)
+            admit_all(engine, 8)
+            engine.flush_controls()
+            reset_launch_counts()
+            outs[kernel] = torch.stack([engine.tick(audio[k]) for k in range(VERSION_TICKS)])
+            counts = launch_counts()
+            want = {"float32": VERSION_TICKS if kernel else 0, "bfloat16": 0}
+            if counts != want:
+                raise AssertionError(f"{spec.name} engine (kernel {kernel}): launches {counts}, "
+                                     f"expected {want}")
+            if kernel:
+                launches += counts["float32"]
+        if not bool(torch.isfinite(outs[True]).all()) or float(outs[True].abs().max()) <= 1e-3:
+            raise AssertionError(f"{spec.name} engine: output not finite or silent")
+        diff = float((outs[True] - outs[False]).abs().max())
+        if not diff <= KERNEL_TOL["float32"]:
+            raise AssertionError(f"{spec.name}: kernel engine vs plain engine: max|d| {diff}")
+        spans = Spans()
+        reset_launch_counts()
+        report = run_parity(params, cfg, bank, utterance(audio[:CHUNK]), tolerance=PARITY_TOL,
+                            device=device, timer=spans)
+        launches += check_parity(report, spans, f"parity of {spec.name}")
+        log("versions", t0, version=spec.name, capacity=CAPACITY, seed=seed,
+            ticks=VERSION_TICKS, launches=VERSION_TICKS, plain_engine_max_abs_diff=diff,
+            tol=KERNEL_TOL["float32"], parity={"max_abs_diff": report.max_abs_diff,
+                                               "rms_diff": report.rms_diff,
+                                               "tol": PARITY_TOL, "frames": report.n_frames,
+                                               **spans.out})
+    return launches
 
 
 def profile_phase(device, out_dir, config, ticks=20):
@@ -504,11 +787,16 @@ def main() -> int:
     log("build", t0, built=sorted(logs), ptxas=ptxas)
 
     entries = {form: kernel_phase(device, form) for form in KERNEL_NAME}
+    by_path = {form: {} for form in KERNEL_NAME}
     for config, (_, form) in ENGINE_CONFIGS.items():
-        launches = engine_phase(device, config)
-        if config == MAIN_CONFIG[form]:
-            entries[form]["launches"] = launches
-            entries[form]["main_path"] = config
+        by_path[form][f"engine_{config}"] = engine_phase(device, config)
+    by_path["float32"]["parity_stream"] = parity_phase(device)
+    offline_phase(device)
+    by_path["float32"]["versions"] = versions_phase(device)
+    for form, entry in entries.items():
+        entry["launches"] = sum(by_path[form].values())
+        entry["launches_by_path"] = by_path[form]
+        entry["main_path"] = MAIN_CONFIG[form]
     if "--profile" in sys.argv[1:]:
         for config in ENGINE_CONFIGS:
             profile_phase(device, sys.argv[sys.argv.index("--profile") + 1], config)

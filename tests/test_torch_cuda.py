@@ -2,8 +2,10 @@
 plain PyTorch version, the engine through the kernel against the engine
 through the plain version and against the golden file of the JAX engine,
 in the three configurations, the exact int8 contractions, and a tick
-without host synchronisation.  They skip where torch.cuda.is_available()
-is false.
+without host synchronisation; offline conversion against the golden file
+of the JAX package's, and a tick of 25 frames (the stage loop) against 25
+real-time ticks (the kernel) for 2.0.0-rc.0 and 2.0.0-alpha.2.  They skip
+where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
 
@@ -29,6 +31,7 @@ from beatrice_vst_tpu_torch.models import layers
 
 MODEL_DIR = os.path.join(os.path.dirname(__file__), "..", "models_demo", "klatt8")
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_engine_golden.npz")
+OFFLINE_GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_offline_golden.npz")
 TOL = 1e-4
 BF16_TOL = 2e-2
 # name -> EngineConfig.realtime keywords
@@ -168,14 +171,19 @@ def test_fused_upsampler_rejects_non_contiguous(cuda_device):
         FU.fused_upsample(up, final, h, states, src)
 
 
-def _engine(config, device, upsampler_kernel=True, cap=8):
+def _klatt8(device):
     from beatrice_vst_tpu_torch.constants import V20RC0
     from beatrice_vst_tpu_torch.models.io import load_weights
-    from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
     from beatrice_vst_tpu_torch.speakers import bank as bank_mod
 
-    params = load_weights(os.path.join(MODEL_DIR, "weights.npz"), device=device)
-    bank = bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=device)
+    return (load_weights(os.path.join(MODEL_DIR, "weights.npz"), device=device),
+            bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=device))
+
+
+def _engine(config, device, upsampler_kernel=True, cap=8):
+    from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
+
+    params, bank = _klatt8(device)
     cfg = EngineConfig.realtime(cap, upsampler_kernel=upsampler_kernel, **CONFIGS[config])
     return StreamEngine(cfg, params, bank, device=device)
 
@@ -262,3 +270,56 @@ def test_warm_tick_makes_no_host_synchronisation(cuda_device, config):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_offline_on_the_card_matches_the_golden_file(cuda_device):
+    """convert_utterance on the card (chunks of 64 frames, 44.1 kHz in and
+    out) at atol 1e-3 of the JAX package's output."""
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+
+    params, bank = _klatt8(cuda_device)
+    got = convert_utterance(params, VoiceConverterConfig.for_version(V20RC0), bank,
+                            golden.offline_signal(), golden.OFFLINE_RATE,
+                            ConversionSettings(**golden.OFFLINE_SETTINGS),
+                            chunk_frames=golden.OFFLINE_CHUNK_FRAMES, device=cuda_device)
+    want = golden.load(OFFLINE_GOLDEN)["f32"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=golden.F32_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["2.0.0-rc.0", "2.0.0-alpha.2"])
+def test_chunk_tick_matches_streaming_on_the_card(cuda_device, version):
+    """run_parity on the card: one tick of 25 frames (the stage loop, no
+    kernel launch) against 25 ticks of one frame (the f32 kernel, one
+    launch each), at the JAX harness's 1e-3.  2.0.0-rc.0 on klatt8,
+    2.0.0-alpha.2 on random parameters from a seed."""
+    from beatrice_vst_tpu_torch.constants import VERSIONS
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.parity import run_parity
+
+    spec = VERSIONS[version]
+    params = bank = None
+    if spec.has_kv:
+        params, bank = _klatt8(cuda_device)
+    cfg = VoiceConverterConfig.for_version(spec)
+    counts = {}
+
+    def timer(name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def count():
+            before = FU.launches
+            yield
+            counts[name] = FU.launches - before
+        return count()
+
+    report = run_parity(params, cfg, bank, spec=spec, n_frames=25, batch=8,
+                        controls={"vq_num_neighbors": 2, "pitch_shift": 3.0},
+                        device=cuda_device, timer=timer)
+    assert report.passed, str(report)
+    assert counts == {"chunk": 0, "stream": 25}

@@ -1,6 +1,8 @@
 """The slice as a whole: the port's StreamEngine against the JAX
-StreamEngine on the shipped klatt8 weights in three configurations, the
-golden file made from the JAX engine, and the engine's control plane.
+StreamEngine on the shipped klatt8 weights in four configurations and at
+frames_per_tick = 25 (the chunk path) in two, the golden file made from
+the JAX engine, and the engine's control plane and metrics (the older
+model versions: tests/test_torch_versions.py).
 
 Configurations (the same `EngineConfig.realtime` keywords for both
 packages): per-stream f32 (per-stream K/V cache and codebooks); the JAX
@@ -41,6 +43,7 @@ from beatrice_vst_tpu_torch.models import pitch_estimator as PPI
 from beatrice_vst_tpu_torch.models import waveform_generator as PW
 from beatrice_vst_tpu_torch.ops.resample import input_resampler_48k_to_16k
 from beatrice_vst_tpu_torch.runtime.controls import init_controls
+from beatrice_vst_tpu_torch.runtime.metrics import EngineMetrics
 from beatrice_vst_tpu_torch.runtime.engine import (EngineConfig, StreamEngine, cast_bank,
                                                     init_engine_state)
 from beatrice_vst_tpu_torch.speakers import bank as bank_mod
@@ -125,8 +128,7 @@ def test_golden_file_matches_the_jax_engine(jax_outputs):
 
 def test_engine_config_has_the_jax_fields_and_defaults():
     def fields(cls):
-        return [(f.name, f.default) for f in dataclasses.fields(cls)
-                if f.name != "frames_per_tick"]
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
     assert fields(EngineConfig) == fields(JEngineConfig)
     port, ref = EngineConfig.realtime(CAP), JEngineConfig.realtime(CAP)
@@ -264,6 +266,9 @@ _INITS = {
     "phone_extractor.init_state": lambda **kw: PPE.init_state(_CFG.model.phone, (2,), **kw),
     "pitch_estimator.init_state": lambda **kw: PPI.init_state(_CFG.model.pitch, (2,), **kw),
     "Resampler.init_state": lambda **kw: input_resampler_48k_to_16k().init_state((2,), **kw),
+    "chain.init": lambda **kw: PC.init(torch.Generator().manual_seed(0), _CFG.model, **kw),
+    "random_bank": lambda **kw: bank_mod.random_bank(torch.Generator().manual_seed(0),
+                                                     _CFG.spec, 2, **kw),
 }
 
 
@@ -286,6 +291,80 @@ def test_init_functions_default_to_cuda_and_raise_without_it(name):
 def test_init_functions_run_on_the_cpu_when_asked(name):
     tensors = _tensors(_INITS[name](device="cpu"))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+# ---- the chunk path (frames_per_tick > 1) ----
+
+CHUNK = 25  # frames per tick
+CHUNK_FRAMES = 50
+CHUNK_CONFIGS = ["slots_f32", "slots_bf16"]
+
+
+@pytest.fixture(scope="module")
+def jax_chunk_outputs():
+    """The JAX engine at frames_per_tick = 25 on the golden streams:
+    {"f32", "bf16"}: [2 ticks, CAP, 25 * 480]."""
+    _, _, jparams, jbank = load_model_dir(MODEL_DIR)
+    return {config.split("_")[1]: golden.run(
+        JStreamEngine(JEngineConfig.realtime(CAP, frames_per_tick=CHUNK, **CONFIGS[config]),
+                      jparams, jbank), frames=CHUNK_FRAMES) for config in CHUNK_CONFIGS}
+
+
+@pytest.mark.parametrize("config", CHUNK_CONFIGS)
+def test_chunk_engine_matches_jax_engine_on_klatt8(klatt8_port, jax_chunk_outputs, config):
+    """Ticks of 25 frames: the resamplers in sub-blocks, every stage over
+    T = 25, the upsampler head as the stage loop, and per-stream codebooks
+    (the shared-bank VQ is a T = 1 route)."""
+    cfg = EngineConfig.realtime(CAP, frames_per_tick=CHUNK, **CONFIGS[config])
+    assert not cfg.use_shared_vq(8)
+    got = golden.run(StreamEngine(cfg, *klatt8_port, device="cpu"), lambda t: t.numpy(),
+                     frames=CHUNK_FRAMES)
+    assert got.shape == (CHUNK_FRAMES // CHUNK, CAP, CHUNK * 480)
+    if config.endswith("bf16"):
+        env = golden.envelope(got, jax_chunk_outputs)
+        print(f"\n{config} at T = {CHUNK}: {env}")
+        assert env["ok"], env
+    else:
+        want = jax_chunk_outputs["f32"]
+        print(f"\n{config} at T = {CHUNK}: max |d| against the JAX engine "
+              f"{np.abs(got - want).max():.3g}")
+        np.testing.assert_allclose(got, want, rtol=0, atol=golden.F32_ATOL)
+
+
+def test_shared_vq_only_at_one_frame_per_tick():
+    """The shared-bank VQ is the T = 1 route by default (`engine.py:306-310`);
+    a chunk gathers each stream's codebook unless the config forces it."""
+    for t, want in ((1, True), (25, False)):
+        cfg = EngineConfig.realtime(CAP, frames_per_tick=t)
+        jcfg = JEngineConfig.realtime(CAP, frames_per_tick=t)
+        assert cfg.use_shared_vq(8) is want
+        assert (jcfg.frames_per_tick == 1 and 8 <= jcfg.vq_shared_max_speakers) is want
+    assert EngineConfig.realtime(CAP, frames_per_tick=25, vq_shared_bank=True).use_shared_vq(8)
+    assert not EngineConfig.realtime(CAP, vq_shared_max_speakers=4).use_shared_vq(8)
+    with pytest.raises(ValueError, match="frames_per_tick"):
+        EngineConfig.realtime(CAP, frames_per_tick=0)
+
+
+def test_metrics_count_frames_and_budget_per_frame():
+    """A tick of T frames carries T frames per stream and has a budget of
+    T * 10 ms (`metrics.py:29-32`)."""
+    m = EngineMetrics()
+    m.record_tick(0.2, 4, 25)  # 200 ms for 250 ms of audio: in budget
+    m.record_tick(0.3, 4, 25)  # over it
+    m.record_tick(0.005, 2, 1)
+    snap = m.snapshot(4)
+    assert snap["frames_total"] == 4 * 25 * 2 + 2
+    assert snap["underruns"] == 1
+
+
+def test_chunk_engine_tick_shape_and_metrics(klatt8_port):
+    eng = StreamEngine(EngineConfig.realtime(2, frames_per_tick=3), *klatt8_port, device="cpu")
+    eng.admit()
+    x = _audio(9, cap=2, ticks=3)
+    with pytest.raises(ValueError, match="shape"):
+        eng.tick(x[:, :480])
+    assert eng.tick(x).shape == (2, 3 * 480)
+    assert eng.metrics_snapshot()["frames_total"] == 3
 
 
 if __name__ == "__main__":

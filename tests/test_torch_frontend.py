@@ -31,7 +31,7 @@ def test_frontend_constants_equal(kw):
 
 
 @pytest.mark.parametrize("kw", FRONTENDS)
-@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("t", [1, 3, 12])
 def test_frontend_mel_from_chunk(kw, t):
     rng = np.random.default_rng(t)
     jf, pf = JF.MelFrontend(**kw), PF.MelFrontend(**kw)
@@ -104,3 +104,30 @@ def test_transform_pitch(ctype):
         **{k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v)
            for k, v in kw.items()}).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ctype", [0, 1])
+@pytest.mark.parametrize("bins", [384, 448])
+def test_transform_pitch_soft(ctype, bins):
+    """round_output=False (soft pitch): continuous f32 bins from continuous
+    inputs, clipped to [1, bins - 1]."""
+    rng = np.random.default_rng(17 + ctype)
+    n = 64
+    q = rng.uniform(0, bins + 20, n).astype(np.float32)
+    kw = dict(
+        average_source_pitch=rng.uniform(30, 300, n).astype(np.float32),
+        intonation_intensity=rng.uniform(0.5, 1.5, n).astype(np.float32),
+        pitch_shift=rng.uniform(-12, 12, n).astype(np.float32),
+        pitch_correction=np.where(rng.random(n) < 0.25, 0.0,
+                                  rng.uniform(0, 1, n)).astype(np.float32),
+        pitch_correction_type=np.full(n, ctype, np.int32),
+    )
+    want = np.asarray(JPM.transform_pitch(
+        jnp.asarray(q), pitch_bins=bins, round_output=False,
+        **{k: jnp.asarray(v) for k, v in kw.items()}))
+    got = PPM.transform_pitch(
+        torch.from_numpy(q), pitch_bins=bins, round_output=False,
+        **{k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v)
+           for k, v in kw.items()}).numpy()
+    assert got.dtype == np.float32 and got.min() >= 1.0 and got.max() <= bins - 1
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)

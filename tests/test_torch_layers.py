@@ -38,7 +38,7 @@ def test_linear_and_layer_norm():
 
 
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8])
-@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("t", [1, 3, 12])
 def test_causal_conv(dilation, t):
     rng = np.random.default_rng(dilation * 10 + t)
     p = J.causal_conv_init(jax.random.PRNGKey(dilation), 4, 32, 16)
@@ -61,6 +61,20 @@ def test_conv_block(dilation):
     yp, sp = P.conv_block(_tp(p), torch.from_numpy(x), torch.from_numpy(s), dilation)
     np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
     # the carry holds the layer-normed input: equal up to rounding
+    np.testing.assert_allclose(sp.numpy(), np.asarray(sj), **TOL)
+
+
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8])
+def test_conv_block_chunk(dilation):
+    """A chunk of 12 frames (the offline and frames_per_tick > 1 path)
+    through one call, from a nonzero carry."""
+    rng = np.random.default_rng(20 + dilation)
+    p = J.conv_block_init(jax.random.PRNGKey(dilation), 64, 4, dilation)
+    x = _x(rng, 3, 12, 64)
+    s = _x(rng, 3, 3 * dilation, 64)
+    yj, sj = J.conv_block(p, jnp.asarray(x), jnp.asarray(s), dilation)
+    yp, sp = P.conv_block(_tp(p), torch.from_numpy(x), torch.from_numpy(s), dilation)
+    np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
     np.testing.assert_allclose(sp.numpy(), np.asarray(sj), **TOL)
 
 

@@ -11,13 +11,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from beatrice_vst_tpu.constants import V20RC0
+from beatrice_vst_tpu.constants import V20A2, V20RC0
 from beatrice_vst_tpu.models import chain as JC
 from beatrice_vst_tpu.models import layers as JL
 from beatrice_vst_tpu.models import phone_extractor as JPE
 from beatrice_vst_tpu.models import pitch_estimator as JPI
 from beatrice_vst_tpu.models import waveform_generator as JW
 from beatrice_vst_tpu_torch.models import chain as PC
+from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 from beatrice_vst_tpu_torch.models import layers as PL
 from beatrice_vst_tpu_torch.models import phone_extractor as PPE
 from beatrice_vst_tpu_torch.models import pitch_estimator as PPI
@@ -28,7 +29,7 @@ torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # jitted once: eager JAX dispatch of the vocoder costs seconds per frame
-_jit_wg = jax.jit(JW.apply, static_argnums=(1,), static_argnames=("compute_dtype",))
+_jit_wg = jax.jit(JW.apply, static_argnums=(1,), static_argnames=("compute_dtype", "soft_pitch"))
 _jit_chain = jax.jit(JC.apply, static_argnums=(1,))
 JCFG = JC.VoiceConverterConfig.for_version(V20RC0)
 PCFG = PC.VoiceConverterConfig.for_version(V20RC0)
@@ -140,14 +141,133 @@ def test_waveform_generator(params):
 
 
 def test_waveform_generator_rejects_chunks(params):
+    """The fused head -- the kernel's wrapper -- takes one frame: it
+    refuses the h of a chunk.  The generator sends chunks (T > 1) to the
+    stage loop instead (`test_waveform_generator_chunk`)."""
     _, pp = params
-    rng = np.random.default_rng(3)
     ps = PW.init_state(PCFG.wg, (1,), device="cpu")
-    kv = PW.project_kv(pp["wg"], torch.zeros(1, 384, 128))
-    with pytest.raises(ValueError, match="one frame"):
-        PW.apply(pp["wg"], PCFG.wg, torch.zeros(1, 2, 128),
-                 torch.full((1, 2), 100), torch.zeros(1, 2, 4),
-                 torch.from_numpy(rng.standard_normal((1, 256)).astype(np.float32)), ps, kv)
+    up, final = FU.head_params(pp["wg"]["up"], pp["wg"]["final"], torch.float32)
+    src = [torch.zeros(1, 2 * n, 9) for n in (4, 20, 80, 240)]
+    with pytest.raises(ValueError, match="argument 0: shape"):
+        FU.fused_upsample(up, final, torch.zeros(1, 2, 256), [*ps["up"], ps["final"]], src)
+
+
+def _wg_chunk_inputs(rng, b, t, phone_channels=128):
+    return dict(
+        phone=(rng.standard_normal((b, t, phone_channels))).astype(np.float32),
+        qp=rng.integers(50, 380, (b, t)).astype(np.int32),
+        feats=rng.standard_normal((b, t, 4)).astype(np.float32),
+        spk=(rng.standard_normal((b, 256)) * 0.1).astype(np.float32),
+        kv=(rng.standard_normal((b, 384, 128)) * 0.1).astype(np.float32),
+    )
+
+
+def _no_fused_head(*args, **kwargs):
+    raise AssertionError("a chunk reached the fused head")
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_waveform_generator_chunk(params, monkeypatch, soft):
+    """T = 12 frames in one call from a random carry, twice: the stage loop
+    of the JAX package's XLA path.  Neither the kernel's wrapper nor its
+    plain version is called."""
+    jp, pp = params
+    monkeypatch.setattr(PW, "fused_upsample", _no_fused_head)
+    monkeypatch.setattr(PW, "fused_upsample_reference", _no_fused_head)
+    b, t = 3, 12
+    rng = np.random.default_rng(12)
+    js = _random_state(JW.init_state(JCFG.wg, (b,)), rng)
+    js["phase"] = jnp.asarray(rng.uniform(0, 6.28, b).astype(np.float32))
+    js["noise_counter"] = jnp.asarray([0, 7, 2**32 - 5], jnp.uint32)
+    ps = jax.tree_util.tree_map(_t, js)
+    for _ in range(2):
+        x = _wg_chunk_inputs(rng, b, t)
+        qp = x["qp"] + (rng.uniform(-0.5, 0.5, (b, t)).astype(np.float32) if soft else 0)
+        kv_j = JW.project_kv(jp["wg"], JCFG.wg, jnp.asarray(x["kv"]))
+        kv_p = PW.project_kv(pp["wg"], torch.from_numpy(x["kv"]))
+        aj, js = _jit_wg(jp["wg"], JCFG.wg, jnp.asarray(x["phone"]), jnp.asarray(qp),
+                         jnp.asarray(x["feats"]), jnp.asarray(x["spk"]), js, kv_cache=kv_j,
+                         soft_pitch=soft)
+        ap, ps = PW.apply(pp["wg"], PCFG.wg, torch.from_numpy(x["phone"]), _t(qp),
+                          torch.from_numpy(x["feats"]), torch.from_numpy(x["spk"]), ps, kv_p,
+                          soft_pitch=soft)
+        assert ap.shape == (b, t * 240)
+        np.testing.assert_allclose(ap.numpy(), np.asarray(aj), **TOL)
+        np.testing.assert_array_equal(ps["noise_counter"].numpy(),
+                                      np.asarray(js["noise_counter"]).astype(np.int64))
+        _close_tree(ps, js, **TOL)
+
+
+def test_stage_loop_bf16(params):
+    """The stage loop in bf16 against the JAX package's in bf16, on the
+    same bf16 frame features and carries: its products are summed in f32
+    and rounded once, the power chain and the stage outputs are bf16, so
+    outputs agree to a few bf16 roundings."""
+    jp, pp = params
+    b, t = 2, 12
+    rng = np.random.default_rng(13)
+    x = _wg_chunk_inputs(rng, b, t)
+    js = _random_state(JW.init_state(JCFG.wg, (b,)), rng)
+    kv_j = JW.project_kv(jp["wg"], JCFG.wg, jnp.asarray(x["kv"]), jnp.bfloat16)
+    aj, _ = _jit_wg(jp["wg"], JCFG.wg, jnp.asarray(x["phone"]), jnp.asarray(x["qp"]),
+                    jnp.asarray(x["feats"]), jnp.asarray(x["spk"]), js, kv_cache=kv_j,
+                    compute_dtype=jnp.bfloat16)
+    ps = jax.tree_util.tree_map(_t, js)
+    kv_p = PW.project_kv(pp["wg"], torch.from_numpy(x["kv"]), torch.bfloat16)
+    ap, _ = PW.apply(pp["wg"], PCFG.wg, torch.from_numpy(x["phone"]), _t(x["qp"]),
+                     torch.from_numpy(x["feats"]), torch.from_numpy(x["spk"]), ps, kv_p,
+                     torch.bfloat16)
+    d = np.abs(ap.numpy() - np.asarray(aj))
+    print(f" bf16 stage loop: max |d| {d.max():.3g}, rms {np.sqrt((d * d).mean()):.3g}", end="")
+    assert d.max() < 0.05 and np.sqrt((d * d).mean()) < 4e-3
+
+
+@pytest.mark.parametrize("spec", [V20A2, V20RC0], ids=["20a2", "20rc0"])
+def test_pitch_estimator_chunk_logits_and_expected_bin(spec):
+    """T = 12 through the pitch estimator of each bin count (384, 448):
+    the argmax, the logits and the soft pitch (expected bin over the same
+    masked logits)."""
+    jcfg = JC.VoiceConverterConfig.for_version(spec).pitch
+    pcfg = PC.VoiceConverterConfig.for_version(spec).pitch
+    jparams = JPI.init(jax.random.PRNGKey(5), jcfg)
+    pparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(5)
+    js = _random_state(JPI.init_state(jcfg, (3,)), rng)
+    ps = jax.tree_util.tree_map(_t, js)
+    lo = np.array([1, 100, 20], np.int32)
+    hi = np.array([spec.pitch_bins - 1, 300, 25], np.int32)
+    audio = (rng.standard_normal((3, 12 * 160)) * 0.1).astype(np.float32)
+    qj, fj, js, lj = JPI.apply(jparams, jcfg, jnp.asarray(audio), js, jnp.asarray(lo),
+                               jnp.asarray(hi), with_logits=True)
+    qp, fp, ps, lp = PPI.apply(pparams, pcfg, torch.from_numpy(audio), ps, _t(lo), _t(hi),
+                               with_logits=True)
+    assert lp.shape == (3, 12, spec.pitch_bins) and lp.dtype == torch.float32
+    np.testing.assert_array_equal(qp.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(fp.numpy(), np.asarray(fj), **TOL)
+    _close_tree(ps, js, **TOL)
+    ej = JPI.expected_bin(lj, jnp.asarray(lo), jnp.asarray(hi), pitch_bins=spec.pitch_bins)
+    ep = PPI.expected_bin(lp, _t(lo), _t(hi))
+    assert ((ep.numpy() >= lo[:, None]) & (ep.numpy() <= hi[:, None])).all()
+    np.testing.assert_allclose(ep.numpy(), np.asarray(ej), rtol=1e-5, atol=1e-3)
+
+
+def test_phone_extractor_older_version_chunk():
+    """2.0.0-alpha.2's phone extractor (256 channels), T = 12 in one call."""
+    jcfg = JC.VoiceConverterConfig.for_version(V20A2).phone
+    pcfg = PC.VoiceConverterConfig.for_version(V20A2).phone
+    assert pcfg.phone_channels == jcfg.phone_channels == 256
+    jparams = JPE.init(jax.random.PRNGKey(6), jcfg)
+    pparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(6)
+    js = _random_state(JPE.init_state(jcfg, (2,)), rng)
+    ps = jax.tree_util.tree_map(_t, js)
+    audio = (rng.standard_normal((2, 12 * 160)) * 0.1).astype(np.float32)
+    yj, js = JPE.apply(jparams, jcfg, jnp.asarray(audio), js)
+    yp, ps = PPE.apply(pparams, pcfg, torch.from_numpy(audio), ps)
+    assert yp.shape == (2, 12, 256)
+    np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
+    _close_tree(ps, js, **TOL)
 
 
 def test_chain_frames(params):
