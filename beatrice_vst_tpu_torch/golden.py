@@ -26,6 +26,24 @@ OFFLINE_SETTINGS, f32, in chunks of OFFLINE_CHUNK_FRAMES frames (a carry
 between chunks).  `tests/test_torch_offline.py` regenerates it and
 requires it to match (`PYTHONPATH=. python tests/test_torch_offline.py`
 rewrites it); the port is held to it at atol 1e-3.
+
+The morph file `tests/data/torch_morph_golden.npz` holds `run_morph`'s
+output [MORPH_TICKS, MORPH_CAPACITY, 480] of the JAX `StreamEngine` on the
+CPU on klatt8 under the names of MORPH_CONFIGS (each with n_morph_slots =
+MORPH_SLOTS, so the slot pool runs out), and under "offline" the JAX
+`convert_utterance` of `offline_signal` with OFFLINE_SETTINGS and the
+weights of MORPH_OFFLINE_STREAM.  The scenario: a direct stream, a
+0.5 / 0.5 tie, eight speakers with one below the 0.01 threshold, a single
+speaker, all-zero weights (degenerate: zero embeddings and a uniform
+codebook lottery), a direct stream switched to morph at MORPH_SWITCH_TICK
+after both slots are leased (it reads its dominant speaker's base slot),
+the tie switched to a direct speaker at MORPH_LEAVE_TICK (its slot is
+released) and `recover()` at MORPH_RECOVER_TICK (the replay leases the
+released slot to the single-speaker stream).
+`tests/test_torch_morph_engine.py` regenerates it and requires it to
+match (`PYTHONPATH=. python tests/test_torch_morph_engine.py` rewrites
+it); f32 engines and offline conversion are held to it at atol 1e-3,
+slots bf16 by the envelope against "slots_f32".
 """
 
 from __future__ import annotations
@@ -45,6 +63,87 @@ OFFLINE_CHUNK_FRAMES = 64
 # ConversionSettings fields (the same for both packages)
 OFFLINE_SETTINGS = dict(target_speaker=3, formant_shift=0.5, pitch_shift=2.0,
                         vq_num_neighbors=4)
+
+
+MORPH_CAPACITY = 6
+MORPH_TICKS = 20
+MORPH_SLOTS = 2
+MORPH_TARGET = 8  # klatt8's speaker count: morph mode
+MORPH_SWITCH_TICK = 8
+MORPH_LEAVE_TICK = 10
+MORPH_RECOVER_TICK = 12
+# name -> EngineConfig.realtime keywords (the same for both packages)
+MORPH_CONFIGS = {
+    "per_stream_f32": dict(kv_cache_mode="per_stream", vq_shared_bank=False,
+                           n_morph_slots=MORPH_SLOTS),
+    "slots_f32": dict(n_morph_slots=MORPH_SLOTS),
+    "slots_bf16": dict(compute_dtype="bfloat16", n_morph_slots=MORPH_SLOTS),
+}
+# per stream: (target_speaker, formant_index, vq_num_neighbors, pitch_shift)
+MORPH_CONTROLS = [(3, 4, 4, 0.0), (MORPH_TARGET, 2, 4, 2.0), (MORPH_TARGET, 6, 4, -3.0),
+                  (MORPH_TARGET, 4, 8, 0.5), (MORPH_TARGET, 3, 4, 0.0), (1, 5, 4, 1.0)]
+# per stream: dense weights over klatt8's 8 speakers (none: direct)
+MORPH_WEIGHTS = [
+    None,
+    [0.0, 0.5, 0.0, 0.0, 0.0, 0.5, 0.0, 0.0],  # a tie
+    [0.25, 0.2, 0.15, 0.12, 0.1, 0.09, 0.085, 0.005],  # one below the threshold
+    [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0],  # a single speaker
+    [0.0] * 8,  # degenerate
+    [0.1, 0.0, 0.6, 0.0, 0.3, 0.0, 0.0, 0.0],  # set at MORPH_SWITCH_TICK
+]
+MORPH_LEAVE_SPEAKER = 4  # stream 1's direct speaker from MORPH_LEAVE_TICK
+MORPH_OFFLINE_STREAM = 2
+
+
+def morph_controls(weights, n_speakers: int = MORPH_TARGET):
+    """Dense weights over n_speakers -> (morph_weights [256] f32,
+    morph_top_idx [8] int32): folded, thresholded and pruned by the port's
+    `pruned_morph_weights` on the CPU, so both packages' engines get the
+    same values."""
+    import torch
+
+    from .constants import MAX_N_SPEAKERS
+    from .speakers.morpher import pruned_morph_weights
+
+    dense = np.zeros((1, MAX_N_SPEAKERS), np.float32)
+    dense[0, :len(weights)] = weights
+    pruned, top = pruned_morph_weights(torch.from_numpy(dense), torch.tensor([n_speakers]))
+    return pruned[0].numpy(), top[0].numpy().astype(np.int32)
+
+
+def set_morph(engine, i, pruned, top, target: int = MORPH_TARGET) -> None:
+    """Put stream i of either package's `StreamEngine` in morph mode with
+    the pruned weights and top-8 indices of `morph_controls`."""
+    engine.set_control(i, "target_speaker", np.int32(target))
+    engine.set_control(i, "morph_weights", pruned)
+    engine.set_control(i, "morph_top_idx", top)
+
+
+def run_morph(engine, to_numpy=np.asarray) -> np.ndarray:
+    """The morph scenario through a fresh engine of capacity
+    MORPH_CAPACITY (either package's `StreamEngine`): [MORPH_TICKS,
+    MORPH_CAPACITY, 480] of `swept_sine`."""
+    audio = swept_sine(cap=MORPH_CAPACITY, ticks=MORPH_TICKS)
+    for i, (speaker, formant, vq, shift) in enumerate(MORPH_CONTROLS):
+        if engine.admit() != i:
+            raise ValueError("run_morph needs a fresh engine")
+        engine.set_control(i, "formant_index", np.int32(formant))
+        engine.set_control(i, "vq_num_neighbors", np.int32(vq))
+        engine.set_control(i, "pitch_shift", np.float32(shift))
+        if speaker == MORPH_TARGET:
+            set_morph(engine, i, *morph_controls(MORPH_WEIGHTS[i]))
+        else:
+            engine.set_control(i, "target_speaker", np.int32(speaker))
+    out = []
+    for k in range(MORPH_TICKS):
+        if k == MORPH_SWITCH_TICK:
+            set_morph(engine, 5, *morph_controls(MORPH_WEIGHTS[5]))
+        if k == MORPH_LEAVE_TICK:
+            engine.set_control(1, "target_speaker", np.int32(MORPH_LEAVE_SPEAKER))
+        if k == MORPH_RECOVER_TICK:
+            engine.recover()
+        out.append(to_numpy(engine.tick(audio[:, 480 * k:480 * (k + 1)])))
+    return np.stack(out)
 
 
 def swept_sine(seed: int = SEED, cap: int = CAPACITY, ticks: int = TICKS) -> np.ndarray:

@@ -21,11 +21,10 @@ import torch
 
 from .constants import COMMON_HOP_LENGTH, V20RC0
 from .device import resolve_device
-from .errors import BeatriceError, ErrorCode
 from .models import chain
 from .models.io import params_from_numpy
 from .runtime.engine import (EngineConfig, cast_params, engine_tick, init_engine_state,
-                             prepare_bank, refresh_kv_cache)
+                             prepare_bank, refresh_conditioning)
 from .speakers import bank as bank_mod
 
 
@@ -63,8 +62,12 @@ def run_parity(params=None, model_cfg=None, bank=None, audio48=None, spec=V20RC0
     params and bank default to random ones from `chain.init` and
     `random_bank` (CPU generators seeded with `seed` and `seed + 1`);
     audio48 [B, T*480] defaults to `parity_audio`.  controls {field:
-    value} are set on every stream (the target speaker must be one of the
-    bank's: morph mode is not ported).  engine_kw: more `EngineConfig`
+    value} are set on every stream, morph controls included (a morph
+    stream's chunk tick draws one codebook lottery for all its frames, the
+    streaming ticks one per frame, so only a morph of one speaker, or a
+    version without VQ, can agree).  Each engine's morph and K/V
+    conditioning is primed by `refresh_conditioning`, as in the JAX
+    harness.  engine_kw: more `EngineConfig`
     fields for both engines (the JAX harness uses the default
     configuration, slots f32).  timer(name), if given, returns a context
     manager entered around the chunk tick ("chunk") and around the
@@ -84,12 +87,6 @@ def run_parity(params=None, model_cfg=None, bank=None, audio48=None, spec=V20RC0
     b = audio48.shape[0]
     n_frames = audio48.shape[1] // COMMON_HOP_LENGTH
     params = params_from_numpy(params, dev)
-    n_spk = bank_mod.n_speakers(bank)
-    target = (controls or {}).get("target_speaker", 0)
-    if not 0 <= int(target) < n_spk:
-        raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE,
-                            f"target_speaker {target} outside [0, {n_spk}); "
-                            "morph mode is not ported yet")
     timer = timer or (lambda name: contextlib.nullcontext())
 
     def setup(frames_per_tick):
@@ -100,9 +97,8 @@ def run_parity(params=None, model_cfg=None, bank=None, audio48=None, spec=V20RC0
         state = init_engine_state(cfg, dev)
         state["controls"]["active"][:] = True
         for field, value in (controls or {}).items():
-            state["controls"][field][:] = value
-        if "kv_cache" in state:  # prime the per-stream K/V of direct speakers
-            refresh_kv_cache(p, bk, state, torch.arange(b, device=dev), cfg.dtype)
+            state["controls"][field][:] = torch.as_tensor(np.asarray(value))
+        refresh_conditioning(p, bk, state, cfg, torch.arange(b, device=dev))
         return cfg, p, bk, state
 
     cfg, p, bk, state = setup(n_frames)

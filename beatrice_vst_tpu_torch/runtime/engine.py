@@ -25,10 +25,19 @@ this port honours of them:
   * vq_shared_bank None (shared while T = 1 and the bank has at most
     vq_shared_max_speakers speakers), True or False; with a compute dtype
     and quantize_conditioning, an int8 codebook with per-row scales.
-Not ported yet: morphing (morph-slot leasing, `refresh_kv_slots`, the
-morph controls and `frame_counter`).  A target speaker outside the bank
-raises.  Per-stream state is kept in the linear conv convention (no ring
-buffers, no tick index).
+  * morphing: a target speaker >= the bank's speaker count is morph mode,
+    conditioned on the spherical averages of its morph speakers'
+    embeddings (`refresh_morphed`, recomputed when its morph controls
+    change; the K/V average kept in the compute dtype) and, every tick,
+    a codebook lottery driven by the per-stream `frame_counter`.  In slots
+    mode a morph stream leases one of n_morph_slots slot-bank rows for its
+    projected K/V and, when none is free, reads its dominant morph
+    speaker's base row instead; in per-stream mode its K/V cache row
+    holds the projected average.
+  * `StreamEngine.recover()` rebuilds the state and replays every
+    control set through `set_control`.
+Per-stream state is kept in the linear conv convention (no ring buffers,
+no tick index).
 
 Control edits are staged on the host and applied between ticks; the
 engine updates its control and state tensors in place there (the JAX
@@ -45,7 +54,8 @@ import time
 import numpy as np
 import torch
 
-from ..constants import COMMON_HOP_LENGTH, V20RC0, VersionSpec
+from ..constants import (COMMON_HOP_LENGTH, MAX_N_SPEAKERS, SPH_AVG_MAX_N_SPEAKERS, V20RC0,
+                         VersionSpec)
 from ..device import resolve_device
 from ..errors import BeatriceError, ErrorCode
 from ..models import chain, waveform_generator
@@ -172,9 +182,21 @@ def init_engine_state(cfg: EngineConfig, device="cuda"):
         "gain_in_db": torch.zeros(b, device=device),
         "gain_out_db": torch.zeros(b, device=device),
         "controls": init_controls(cfg.spec, cfg.capacity, device),
+        # each stream's frame index, uint32 values (wrapped mod 2^32): the
+        # codebook lottery's random stream
+        "frame_counter": torch.zeros(b, dtype=torch.int64, device=device),
+        "morphed": {
+            "additive": torch.zeros((cfg.capacity, wg.hidden), device=device),
+            # the pruned weights at the top-8 indices, read by the lottery
+            "w8": torch.zeros((cfg.capacity, SPH_AVG_MAX_N_SPEAKERS), device=device),
+        },
     }
     if not cfg.spec.has_kv:
         return state
+    # in the compute dtype, as the JAX engine stores it: the K/V
+    # projections read this rounded copy (`engine.py:159-164`)
+    state["morphed"]["kv"] = torch.zeros((cfg.capacity, cfg.spec.kv_length, cfg.spec.kv_channels),
+                                         dtype=cond_dtype, device=device)
     quantized = cfg.quantize_kv_cache and cfg.dtype is not None
     rows = cfg.n_morph_slots if cfg.kv_cache_mode == "slots" else cfg.capacity
     kv = _kv_tensors((rows, wg.n_blocks, cfg.spec.kv_length, wg.attn_dim), quantized,
@@ -217,11 +239,16 @@ def cast_bank(bank, dtype=None, quantize_codebook: bool = False, device="cuda"):
 
 def _build_cond(cfg: EngineConfig, bank, state):
     """One tick's per-stream conditioning (`engine.py:225`): additive +
-    formant embedding (f32) and, for 2.0.0-rc.0, the K/V of the config's
-    mode and the VQ codebook route (shared bank or per-stream gather)."""
+    formant embedding (f32; a morph stream's average) and, for
+    2.0.0-rc.0, the K/V of the config's mode and the VQ codebook route
+    (shared bank or per-stream gather) with one lottery draw per stream
+    and tick for morph streams."""
     c = state["controls"]
-    additive, cb_idx = morpher.select_conditioning(
-        bank, c["target_speaker"], c["formant_index"])
+    additive, _, cb_idx = morpher.select_conditioning(
+        bank, c["target_speaker"], state["morphed"], c["formant_index"],
+        frame_counter=state["frame_counter"] if "codebook" in bank else None,
+        pruned_weights=c["morph_weights"], top_idx=c["morph_top_idx"], include_kv=False,
+        w8=state["morphed"]["w8"])
     cond = {name: c[name] for name in (
         "vq_num_neighbors", "min_q", "max_q", "average_source_pitch",
         "intonation_intensity", "pitch_shift", "pitch_correction",
@@ -274,6 +301,7 @@ def engine_tick(params, bank, state, audio48, *, cfg: EngineConfig):
         "rs_out": rs_out_state,
         "gain_in_db": gain_in_db,
         "gain_out_db": gain_out_db,
+        "frame_counter": (state["frame_counter"] + t) & 0xFFFFFFFF,
     }
 
 
@@ -300,9 +328,11 @@ def _zero_rows(tree, idx) -> None:
 
 def reset_streams(state, idx) -> None:
     """Give the streams `idx` fresh carries, in place: zero model and
-    resampler state, gains at their targets; controls are kept."""
+    resampler state and frame counters, gains at their targets; controls
+    are kept."""
     for key in ("model", "rs_in", "rs_out"):
         _zero_rows(state[key], idx)
+    state["frame_counter"][idx] = 0
     c = state["controls"]
     state["gain_in_db"][idx] = c["input_gain_db"][idx]
     state["gain_out_db"][idx] = c["output_gain_db"][idx]
@@ -318,14 +348,53 @@ def _store_kv(dst, idx, proj) -> None:
             dst[name][idx] = proj[name].to(dst[name].dtype)
 
 
+def refresh_morphed(state, bank, idx) -> None:
+    """Recompute the morphed embeddings of the streams `idx` from their
+    morph controls, in place (`engine.py:394`): the spherical averages and
+    the weights at the top-8 indices."""
+    c = state["controls"]
+    pruned, top = c["morph_weights"][idx], c["morph_top_idx"][idx]
+    m = morpher.update_morphed_embeddings(bank, pruned, top)
+    m["w8"] = torch.gather(pruned, -1, top)
+    for key, dst in state["morphed"].items():
+        dst[idx] = m[key].to(dst.dtype)
+
+
+def refresh_kv_slots(params, state, cfg: EngineConfig, stream_idx, slot_idx) -> None:
+    """Project the morphed K/V of the streams `stream_idx` into the morph
+    slots `slot_idx` of the slot bank, in place (`engine.py:409`)."""
+    proj = waveform_generator.project_kv(params["wg"], state["morphed"]["kv"][stream_idx],
+                                         cfg.dtype)
+    _store_kv(state["kv_slots"], slot_idx, proj)
+
+
 def refresh_kv_cache(params, bank, state, idx, compute_dtype=None) -> None:
-    """Re-project the speaker KV of the streams `idx` into their per-block
-    K/V cache rows, in place (`engine.py:435`; per-stream mode, speaker
-    events only)."""
+    """Re-project the K/V of the streams `idx` into their per-block K/V
+    cache rows, in place (`engine.py:435`; per-stream mode): the target
+    speaker's, or a morph stream's morphed K/V."""
     n = bank["additive"].shape[0]
-    direct = torch.clamp(state["controls"]["target_speaker"][idx], 0, n - 1)
-    proj = waveform_generator.project_kv(params["wg"], bank["kv"][direct], compute_dtype)
+    target = state["controls"]["target_speaker"][idx]
+    kv = torch.where((target >= n)[:, None, None], state["morphed"]["kv"][idx],
+                     bank["kv"][torch.clamp(target, 0, n - 1)])
+    proj = waveform_generator.project_kv(params["wg"], kv, compute_dtype)
     _store_kv(state["kv_cache"], idx, proj)
+
+
+def refresh_conditioning(params, bank, state, cfg: EngineConfig, idx) -> None:
+    """The morph embeddings, then the K/V conditioning, of the streams
+    `idx`, in place (`engine.py:467`).  In slots mode morph slots are
+    assigned round robin by position in `idx` -- the harness's shortcut;
+    `StreamEngine` leases them."""
+    refresh_morphed(state, bank, idx)
+    if "kv_slots" in state:
+        n = bank["additive"].shape[0]
+        rows = torch.arange(len(idx), device=idx.device) % cfg.n_morph_slots
+        refresh_kv_slots(params, state, cfg, idx, rows)
+        c = state["controls"]
+        c["kv_slot"][idx] = torch.where(c["target_speaker"][idx] >= n, n + rows,
+                                        c["kv_slot"][idx])
+    elif "kv_cache" in state:
+        refresh_kv_cache(params, bank, state, idx, cfg.dtype)
 
 
 def project_base_speakers(params, bank, cfg: EngineConfig) -> dict:
@@ -356,7 +425,8 @@ def prepare_bank(cfg: EngineConfig, params, bank, device="cuda") -> dict:
 
 class StreamEngine:
     """Host-side wrapper: owns params, bank and state, the stream table
-    (admit/evict) and the control stage.
+    (admit/evict), the control stage and, in slots mode, the lease of
+    morph slots.
 
     Typical loop, one tick per T * 10 ms:
         out48 = engine.tick(in48)   # [capacity, T*480] -> [capacity, T*480]
@@ -375,7 +445,21 @@ class StreamEngine:
         # min-heap: admit() always takes the smallest free index
         self._free = list(range(cfg.capacity))
         self._pending_reset: set[int] = set()
+        self._slot_used = [False] * cfg.capacity
+        self._morph_dirty: set[int] = set()
         self._kv_dirty: set[int] = set()
+        # slots mode: free morph slots (popped from the end: slot 0 first),
+        # stream -> leased slot, each stream's dominant morph speaker (its
+        # base slot when no morph slot is free), the streams in morph mode,
+        # and the streams whose leased slot needs projecting
+        self._free_morph_slots = list(range(cfg.n_morph_slots - 1, -1, -1))
+        self._morph_slot: dict[int, int] = {}
+        self._last_top: dict[int, int] = {}
+        self._morph_mode: set[int] = set()
+        self._slot_dirty: set[int] = set()
+        # every control set through set_control, stream -> field -> value
+        # in the order first set: recover() replays it
+        self._applied: dict[int, dict[str, np.ndarray]] = {}
         self.metrics = EngineMetrics()
         self.counters = {"admitted": 0, "evicted": 0}
 
@@ -383,14 +467,19 @@ class StreamEngine:
 
     def admit(self) -> int:
         """Allocate a stream slot; returns its index (raises if full).  The
-        slot's carries are reset at the next flush."""
+        slot's carries are reset at the next flush, and it starts from the
+        default controls."""
         if not self._free:
             raise RuntimeError("stream capacity exhausted")
         idx = heapq.heappop(self._free)
         self._pending_reset.add(idx)
+        self._slot_used[idx] = True
+        self._applied.pop(idx, None)
         self._kv_dirty.add(idx)
         self.stage.stage(idx, "active", True)
         if self._slots_mode:
+            self._release_morph_slot(idx)
+            self._morph_mode.discard(idx)
             self.stage.stage(idx, "kv_slot", 0)
         self.counters["admitted"] += 1
         return idx
@@ -398,42 +487,130 @@ class StreamEngine:
     def evict(self, idx: int) -> None:
         self.stage.stage(idx, "active", False)
         heapq.heappush(self._free, idx)
+        self._applied.pop(idx, None)
+        if self._slots_mode:
+            self._release_morph_slot(idx)
+            self._morph_mode.discard(idx)
         self.counters["evicted"] += 1
+
+    # ---- morph slots (slots mode) ----
+
+    def _lease_morph_slot(self, idx: int):
+        if idx not in self._morph_slot and self._free_morph_slots:
+            self._morph_slot[idx] = self._free_morph_slots.pop()
+        return self._morph_slot.get(idx)
+
+    def _release_morph_slot(self, idx: int) -> None:
+        slot = self._morph_slot.pop(idx, None)
+        if slot is not None:
+            self._free_morph_slots.append(slot)
+
+    def _stage_kv_slot(self, idx: int) -> None:
+        """Point a morph stream at its row of the slot bank: its leased
+        morph slot or, with every slot leased, its dominant morph
+        speaker's base slot (the additive morph stays exact)."""
+        if idx not in self._morph_mode:
+            return
+        slot = self._lease_morph_slot(idx)
+        if slot is None:
+            self.stage.stage(idx, "kv_slot", self._last_top.get(idx, 0))
+        else:
+            self.stage.stage(idx, "kv_slot", self._n_speakers + slot)
+            self._slot_dirty.add(idx)
 
     # ---- controls ----
 
     def set_control(self, idx: int, field: str, value) -> None:
         """Stage one control edit for stream `idx`, applied at the next
-        flush.  Morph controls are not ported yet, so a target speaker
-        outside the bank raises."""
+        flush (`engine.py:750`).  A target speaker >= the bank's speaker
+        count is morph mode, conditioned by the stream's `morph_weights`
+        [256] and `morph_top_idx` [8] (`morpher.pruned_morph_weights`)."""
         if field not in CONTROL_FIELDS:
-            raise KeyError(f"unknown or unported control {field!r}; "
-                           f"ported: {sorted(CONTROL_FIELDS)}")
-        if field == "target_speaker":
-            v = int(np.asarray(value))
-            if not 0 <= v < self._n_speakers:
-                raise BeatriceError(
-                    ErrorCode.SPEAKER_ID_OUT_OF_RANGE,
-                    f"target_speaker {v} outside [0, {self._n_speakers}); "
-                    "morph mode is not ported yet")
-            self._kv_dirty.add(int(idx))
-        self.stage.stage(idx, field, value)
+            raise KeyError(f"unknown control {field!r}; known: {sorted(CONTROL_FIELDS)}")
+        value = np.asarray(value)
+        shape = CONTROL_FIELDS[field][2]
+        if value.shape != shape:
+            raise ValueError(f"{field}: value of shape {value.shape}, expected {shape}")
+        if field == "target_speaker" and value < 0:
+            raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE, f"target_speaker {value} < 0")
+        if field == "morph_top_idx" and not ((value >= 0) & (value < MAX_N_SPEAKERS)).all():
+            raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE,
+                                f"morph_top_idx {value} outside [0, {MAX_N_SPEAKERS})")
+        i = int(idx)
+        self.stage.stage(i, field, value)
+        self._applied.setdefault(i, {})[field] = value
+        if field in ("morph_weights", "morph_top_idx"):
+            self._morph_dirty.add(i)
+            self._kv_dirty.add(i)
+            if self._slots_mode:
+                if field == "morph_top_idx":
+                    self._last_top[i] = int(value[0])
+                self._stage_kv_slot(i)
+        elif field == "target_speaker":
+            self._kv_dirty.add(i)
+            if self._slots_mode:
+                if int(value) >= self._n_speakers:
+                    self._morph_mode.add(i)
+                    self._stage_kv_slot(i)
+                else:
+                    # a direct speaker's slot follows target_speaker
+                    # inside the tick; return any leased slot
+                    self._morph_mode.discard(i)
+                    self._release_morph_slot(i)
 
     def flush_controls(self) -> None:
-        """Apply staged edits, reset admitted slots and, in per-stream
-        mode for a version with K/V, refresh the K/V cache of streams
-        whose speaker changed (in slots mode a direct speaker's slot
-        follows target_speaker inside the tick)."""
+        """Apply staged edits, then in the JAX engine's order
+        (`engine.py:773`): reset admitted slots, recompute the morphed
+        embeddings of streams whose morph controls changed, refresh the
+        per-stream K/V cache of streams whose speaker or morph changed
+        (per-stream mode), and project the morphed K/V into leased morph
+        slots (slots mode)."""
         if self.stage.pending():
             apply_control_updates(self.state, self.stage.drain())
         if self._pending_reset:
-            idx = torch.as_tensor(sorted(self._pending_reset), device=self.device)
-            reset_streams(self.state, idx)
+            reset_streams(self.state, self._index(sorted(self._pending_reset)))
             self._pending_reset.clear()
+        if self._morph_dirty:
+            refresh_morphed(self.state, self.bank, self._index(sorted(self._morph_dirty)))
+            self._morph_dirty.clear()
         if self._kv_dirty and "kv_cache" in self.state:
-            idx = torch.as_tensor(sorted(self._kv_dirty), device=self.device)
-            refresh_kv_cache(self.params, self.bank, self.state, idx, self.cfg.dtype)
+            refresh_kv_cache(self.params, self.bank, self.state,
+                             self._index(sorted(self._kv_dirty)), self.cfg.dtype)
         self._kv_dirty.clear()
+        streams = sorted(i for i in self._slot_dirty if i in self._morph_slot)
+        if streams:
+            refresh_kv_slots(self.params, self.state, self.cfg, self._index(streams),
+                             self._index([self._morph_slot[i] for i in streams]))
+        self._slot_dirty.clear()
+
+    def _index(self, values: list[int]) -> torch.Tensor:
+        return torch.as_tensor(values, dtype=torch.int64, device=self.device)
+
+    def recover(self) -> list[int]:
+        """Rebuild the device state after a device fault (`engine.py:825`),
+        keeping the stream table and every control set through
+        `set_control`: occupied slots are re-activated, their controls
+        replayed in the order first set, and their morph and K/V
+        conditioning refreshed at the next flush.  Streaming contexts
+        restart from zero, as the reference's ResetContext does.  Returns
+        the re-activated slots."""
+        self.state = init_engine_state(self.cfg, self.device)
+        self.stage = ControlStage()
+        for pending in (self._pending_reset, self._morph_dirty, self._kv_dirty,
+                        self._slot_dirty):
+            pending.clear()
+        active = [i for i in range(self.cfg.capacity)
+                  if self._slot_used[i] and i not in self._free]
+        for idx in active:
+            self.stage.stage(idx, "active", True)
+            self._kv_dirty.add(idx)
+            for field, value in list(self._applied.get(idx, {}).items()):
+                self.set_control(idx, field, value)
+            if idx in self._morph_slot:
+                self._morph_dirty.add(idx)
+                self._slot_dirty.add(idx)
+        self.counters["recoveries"] = self.counters.get("recoveries", 0) + 1
+        return active
 
     # ---- the tick ----
 

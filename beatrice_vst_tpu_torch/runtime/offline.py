@@ -6,10 +6,9 @@ is resampled to 16 kHz, runs through the chain as one chunk of T frames
 (or in chunks of `chunk_frames` with the state carried between them), and
 the 24 kHz output is resampled to the output rate.  Any input and output
 rate whose ratio to the model's rates has terms below 1000 works (a
-44.1 kHz input has the ratio 160/441).
-
-Morphing is not ported yet: `ConversionSettings.morph_weights` raises, as
-a morph-mode target does in the engine.
+44.1 kHz input has the ratio 160/441).  `ConversionSettings.morph_weights`
+converts to the morph of its speakers (one codebook lottery draw, at
+frame 0, for the whole utterance, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..constants import IN_HOP_LENGTH, OUT_HOP_LENGTH
+from ..constants import IN_HOP_LENGTH, MAX_N_SPEAKERS, OUT_HOP_LENGTH, SPH_AVG_MAX_N_SPEAKERS
 from ..device import resolve_device
 from ..errors import BeatriceError, ErrorCode
 from ..models import chain, waveform_generator
@@ -43,7 +42,7 @@ class ConversionSettings:
     min_source_pitch: float = 33.125
     max_source_pitch: float = 80.875
     vq_num_neighbors: int = 0
-    morph_weights: np.ndarray | None = None  # morph mode: not ported yet, raises
+    morph_weights: np.ndarray | None = None  # dense [n_speakers] -> morph mode
     # condition the vocoder on the expected pitch bin instead of the argmax
     soft_pitch: bool = False
 
@@ -51,25 +50,44 @@ class ConversionSettings:
 def build_cond(params, cfg: VoiceConverterConfig, bank, settings: ConversionSettings,
                batch: int = 1, compute_dtype=None):
     """The chain's cond dict for `settings` (`offline.py:45`), on the
-    bank's device.  Where the JAX package hands the chain the raw speaker
-    KV, the port hands it the projected per-stream K/V cache (the same
-    products, taken once)."""
-    if settings.morph_weights is not None:
-        raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE,
-                            "morph_weights: morph mode is not ported yet")
+    bank's device.  With morph_weights (zero-padded to 256) the weights
+    are folded, thresholded and pruned, the embeddings averaged once, and
+    the codebook drawn by one lottery at frame 0; a target speaker >= the
+    bank's count without weights is morph mode with zero embeddings, as
+    in the JAX package.  Where the JAX package hands the chain the raw
+    speaker KV, the port hands it the projected per-stream K/V cache (the
+    same products, taken once)."""
     spec = cfg.spec
     n = bank["additive"].shape[0]
-    if not 0 <= settings.target_speaker < n:
+    if settings.target_speaker < 0:
         raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE,
-                            f"target_speaker {settings.target_speaker} outside [0, {n})")
+                            f"target_speaker {settings.target_speaker} < 0")
     dev = bank["additive"].device
 
     def full(value, dtype):
         return torch.full((batch,), value, dtype=dtype, device=dev)
 
+    target = settings.target_speaker
+    pruned = torch.zeros((1, MAX_N_SPEAKERS), device=dev)
+    top_idx = torch.zeros((1, SPH_AVG_MAX_N_SPEAKERS), dtype=torch.int64, device=dev)
+    if settings.morph_weights is not None:
+        target = n
+        w = torch.as_tensor(np.asarray(settings.morph_weights, np.float32), device=dev)[None]
+        if w.shape[1] > MAX_N_SPEAKERS:
+            raise BeatriceError(ErrorCode.SPEAKER_ID_OUT_OF_RANGE,
+                                f"{w.shape[1]} morph weights, at most {MAX_N_SPEAKERS}")
+        w = torch.nn.functional.pad(w, (0, MAX_N_SPEAKERS - w.shape[1]))
+        pruned, top_idx = morpher.pruned_morph_weights(w, torch.tensor([n], device=dev))
+        morphed = morpher.update_morphed_embeddings(bank, pruned, top_idx)
+    else:
+        morphed = {k: torch.zeros((1, *bank[k].shape[1:]), device=dev)
+                   for k in ("additive", "kv") if k in bank}
     formant = int(round(np.clip(settings.formant_shift, -2, 2) * 2 + 4))
-    additive, cb_idx = morpher.select_conditioning(
-        bank, full(settings.target_speaker, torch.int64), full(formant, torch.int64))
+    morphed = {k: v.expand(batch, *v.shape[1:]) for k, v in morphed.items()}
+    additive, kv, cb_idx = morpher.select_conditioning(
+        bank, full(target, torch.int64), morphed, full(formant, torch.int64),
+        frame_counter=full(0, torch.int64) if "codebook" in bank else None,
+        pruned_weights=pruned.expand(batch, -1), top_idx=top_idx.expand(batch, -1))
 
     def q(midi):
         return int(np.clip(round((np.clip(midi, 0, 128) - 33.0) * 8.0), 1, spec.pitch_bins - 1))
@@ -86,10 +104,8 @@ def build_cond(params, cfg: VoiceConverterConfig, bank, settings: ConversionSett
         "pitch_correction": full(float(np.clip(settings.pitch_correction, 0, 1)), f32),
         "pitch_correction_type": full(settings.pitch_correction_type, torch.int64),
     }
-    speaker = full(settings.target_speaker, torch.int64)
     if spec.has_kv:
-        cond["kv_cache"] = waveform_generator.project_kv(params["wg"], bank["kv"][speaker],
-                                                         compute_dtype)
+        cond["kv_cache"] = waveform_generator.project_kv(params["wg"], kv, compute_dtype)
     if spec.has_vq:
         cond["codebook"] = bank["codebook"][cb_idx]
     return cond

@@ -35,7 +35,28 @@ Phases, each printing one line with its seconds:
                 golden.py) held to the JAX engine's output in
                 tests/data/torch_engine_golden.npz: f32 at atol 1e-3, bf16
                 by the envelope.
-  5. parity  -- the port's run_parity (beatrice_vst_tpu_torch/parity.py) on
+  5. morph   -- one line per configuration: the engine at capacity 256 with
+                every odd stream morphing (target 8, its own weights over
+                klatt8's 8 speakers from a numpy seed, pruned on the card
+                by ops/morph; in slots mode 16 streams lease the 16 morph
+                slots and the others read their dominant speaker's base
+                slot): the refresh (flush_controls of the staged morph
+                controls) between CUDA events, twice; MORPH_TICKS ticks with
+                the launch counts set to 0 just before and read just after,
+                the kernel form once per tick; every output finite, no
+                stream silent; the direct engine's ticks in the same run
+                (half before, half after); the first 20 morph ticks against
+                a plain-upsampler engine; median and p90 tick, host ms,
+                the memory live before the ticks (every engine in the
+                process) and the ticks' peak above it; the morph golden run (golden.run_morph)
+                against tests/data/torch_morph_golden.npz (f32 at 1e-3,
+                bf16 by the envelope).  Then, once every configuration is
+                timed, morph_profile: device launches per tick (morph and
+                direct) and the lottery's own under torch.profiler, and the
+                direct ticks timed again after the profiler ran; and
+                morph_offline: convert_utterance with morph weights against
+                the golden file at 1e-3.
+  6. parity  -- the port's run_parity (beatrice_vst_tpu_torch/parity.py) on
                 klatt8, slots f32, capacity 256: one tick of 25 frames
                 (the stage loop) against 25 real-time ticks (the f32
                 kernel), max |d| <= 1e-3, the f32 kernel launched 25
@@ -46,23 +67,24 @@ Phases, each printing one line with its seconds:
                 events (median and p90 tick, host ms per tick), and a few
                 ticks under torch.profiler (device launches and
                 device-busy ms per tick).
-  6. offline -- runtime/offline.py:convert_utterance on klatt8 (f32, chunks
+  7. offline -- runtime/offline.py:convert_utterance on klatt8 (f32, chunks
                 of 64 frames) of golden.offline_signal (1.5 s at 44.1 kHz
                 in and out) held to tests/data/torch_offline_golden.npz
                 (the JAX package's output) at atol 1e-3; audio seconds
                 converted per second, on the second of two runs.
-  7. versions -- 2.0.0-alpha.2 and 2.0.0-beta.1 on random parameters and
+  8. versions -- 2.0.0-alpha.2 and 2.0.0-beta.1 on random parameters and
                 banks from the port's chain.init and random_bank at fixed
                 seeds, capacity 256: the kernel engine against the
                 plain-upsampler engine over 20 ticks at 1e-4, the f32 form
                 launched once per tick; then run_parity at 25 frames at
                 1e-3.
-  8. profile -- only with `--profile DIR`: where the engine's tick time
+  9. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
-drove it: the engine configurations, the streaming halves of parity and
-the older versions' engines), the card line, and the last line
+drove it: the engine configurations, the morph engines, the streaming
+halves of parity and the older versions' engines), the card line, and the
+last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -123,6 +145,12 @@ PARITY_CONTROLS = {"target_speaker": 3, "formant_index": 2, "vq_num_neighbors": 
                    "pitch_shift": 2.0}
 VERSION_TICKS = 20
 VERSION_SEED = 7
+MORPH_TICKS = 60
+MORPH_WARMUP_TICKS = 10
+MORPH_SEED = 11
+MORPH_PROFILE_TICKS = 3
+MORPH_AFTER_PROFILER_TICKS = 30
+MORPH_GOLDEN = os.path.join(HERE, "tests", "data", "torch_morph_golden.npz")
 
 
 def log(phase, t0, **fields):
@@ -411,6 +439,30 @@ def reset_launch_counts():
     FU.launches = FU.launches_bf16 = 0
 
 
+def timed_ticks(engine, audio, ticks, keep=0):
+    """`ticks` ticks of audio, each between CUDA events: (each stream's
+    peak per tick [ticks, CAPACITY], whether all were finite, span ms per
+    tick, host ms per tick, the first `keep` outputs)."""
+    import torch
+
+    spans, host_ms, peaks, finite, kept = [], [], [], [], []
+    for k in range(ticks):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        out = engine.tick(audio[k])
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        end.record()
+        peaks.append(out.abs().max(dim=1).values)
+        finite.append(torch.isfinite(out).all())
+        spans.append((start, end))
+        if k < keep:
+            kept.append(out.clone())
+    torch.cuda.synchronize()
+    return (torch.stack(peaks), bool(torch.stack(finite).all()),
+            [s.elapsed_time(e) for s, e in spans], host_ms, kept)
+
+
 class Spans:
     """A `run_parity` timer: for each named block, its span from CUDA
     events, the host's time to enqueue it, each kernel form's launches
@@ -451,24 +503,33 @@ def check_parity(report, spans, label):
     return stream["float32"]
 
 
+def golden_gate(label, form, got, f32_ref, bf16_ref):
+    """A run on the card against the JAX engine's golden output: f32 at
+    atol 1e-3 to f32_ref; bf16 by the envelope of golden.py against the
+    JAX f32 and bf16 runs (f32_ref, bf16_ref).  Raises if it fails."""
+    from beatrice_vst_tpu_torch import golden
+
+    if form == "bfloat16":
+        env = golden.envelope(got, {"f32": f32_ref, "bf16": bf16_ref})
+        if not env["ok"]:
+            raise AssertionError(f"{label} outside the golden envelope: {env}")
+        return {"envelope": env}
+    dev = golden.deviation(got, f32_ref)
+    if not dev["max"] <= golden.F32_ATOL:
+        raise AssertionError(f"{label} vs the golden file: max|d| {dev['max']} > "
+                             f"{golden.F32_ATOL}")
+    return {"vs_golden_f32": dev, "tol": golden.F32_ATOL}
+
+
 def golden_check(device, config):
     """The engine's golden run on the card (4 streams x 20 ticks) against
-    the JAX engine's output: f32 at atol 1e-3, bf16 by the envelope."""
+    the JAX engine's output in tests/data/torch_engine_golden.npz."""
     from beatrice_vst_tpu_torch import golden
 
     ref = golden.load(GOLDEN)
     engine = build_engine(device, config, capacity=golden.CAPACITY, controls=False)
     got = golden.run(engine, lambda t: t.cpu().numpy())
-    if ENGINE_CONFIGS[config][1] == "bfloat16":
-        env = golden.envelope(got, ref)
-        if not env["ok"]:
-            raise AssertionError(f"{config} outside the golden envelope: {env}")
-        return {"envelope": env}
-    dev = golden.deviation(got, ref["f32"])
-    if not dev["max"] <= golden.F32_ATOL:
-        raise AssertionError(f"{config} vs the golden file: max|d| {dev['max']} > "
-                             f"{golden.F32_ATOL}")
-    return {"vs_golden_f32": dev, "tol": golden.F32_ATOL}
+    return golden_gate(config, ENGINE_CONFIGS[config][1], got, ref["f32"], ref["bf16"])
 
 
 def engine_phase(device, config):
@@ -485,34 +546,18 @@ def engine_phase(device, config):
     engine.flush_controls()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    finite = []
-    kept = []
-    tick_ms = []
-    host_ms = []
     reset_launch_counts()
-    for k in range(TICKS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t_host = time.perf_counter()
-        out = engine.tick(audio[k])
-        host_ms.append((time.perf_counter() - t_host) * 1e3)
-        end.record()
-        finite.append(torch.isfinite(out).all())
-        if k < COMPARE_TICKS:
-            kept.append(out.clone())
-        tick_ms.append((start, end))
-    torch.cuda.synchronize()
+    peaks, finite, spans, host_ms, kept = timed_ticks(engine, audio, TICKS, COMPARE_TICKS)
     counts = launch_counts()
     if counts[form] != TICKS or sum(counts.values()) != TICKS:
         raise AssertionError(f"{config}: kernel launches {counts} in {TICKS} ticks, "
                              f"expected {TICKS} of the {form} form only")
-    if not bool(torch.stack(finite).all()):
+    if not finite:
         raise AssertionError(f"{config}: non-finite engine output")
-    times = [s.elapsed_time(e) for s, e in tick_ms[WARMUP_TICKS:]]
+    times = spans[WARMUP_TICKS:]
     median_tick = float(np.median(times))
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    if float(torch.stack([o.abs().max() for o in kept]).max()) <= 1e-3:
+    if float(peaks[:COMPARE_TICKS].max()) <= 1e-3:
         raise AssertionError(f"{config}: engine output is silent")
 
     plain = build_engine(device, config, upsampler_kernel=False)
@@ -584,23 +629,13 @@ def chunk_engine(device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    spans, host_ms, outs = [], [], []
-    for k in range(2 + CHUNK_TICKS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t = time.perf_counter()
-        out = engine.tick(ticks[k])
-        host_ms.append((time.perf_counter() - t) * 1e3)
-        end.record()
-        outs.append(out.abs().max())
-        spans.append((start, end))
-    torch.cuda.synchronize()
-    peaks = torch.stack(outs)
-    if not bool(torch.isfinite(peaks).all()) or float(peaks.min()) <= 1e-3:
+    peaks, finite, spans, host_ms, _ = timed_ticks(engine, ticks, 2 + CHUNK_TICKS)
+    peaks = peaks.max(dim=1).values
+    if not finite or float(peaks.min()) <= 1e-3:
         raise AssertionError(f"T = {CHUNK} engine: output not finite or silent: {peaks}")
     if sum(launch_counts().values()):
         raise AssertionError(f"T = {CHUNK} engine launched the kernel: {launch_counts()}")
-    times = [s.elapsed_time(e) for s, e in spans[2:]]
+    times = spans[2:]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for k in range(2 + CHUNK_TICKS, len(ticks)):
             engine.tick(ticks[k])
@@ -711,6 +746,237 @@ def versions_phase(device):
     return launches
 
 
+def morph_controls(device, n_speakers):
+    """Every odd stream's morph controls: its own weights over the bank's
+    speakers from a numpy seed (Dirichlet(0.5), so some fall below the
+    threshold), pruned on the card by the port's ops/morph.  Returns
+    {stream: (morph_weights [256], morph_top_idx [8])} as numpy."""
+    import torch
+    from beatrice_vst_tpu_torch.constants import MAX_N_SPEAKERS
+    from beatrice_vst_tpu_torch.speakers.morpher import pruned_morph_weights
+
+    streams = list(range(1, CAPACITY, 2))
+    dense = np.zeros((len(streams), MAX_N_SPEAKERS), np.float32)
+    dense[:, :n_speakers] = np.random.default_rng(MORPH_SEED).dirichlet(
+        np.full(n_speakers, 0.5), len(streams))
+    pruned, top = pruned_morph_weights(torch.from_numpy(dense).to(device),
+                                       torch.full((len(streams),), n_speakers, device=device))
+    pruned, top = pruned.cpu().numpy(), top.cpu().numpy()
+    return {i: (pruned[k], top[k]) for k, i in enumerate(streams)}
+
+
+def set_morph(engine, controls, n_speakers):
+    from beatrice_vst_tpu_torch import golden
+
+    for i, (pruned, top) in controls.items():
+        golden.set_morph(engine, i, pruned, top, n_speakers)
+
+
+def tick_launches(engine, audio, ticks):
+    """Device kernel launches per tick over `ticks` ticks under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(ticks):
+            engine.tick(audio[k])
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / ticks
+
+
+def lottery_launches(engine, n_speakers, calls=5):
+    """The codebook lottery as the tick calls it, alone: (device kernel
+    launches per call over `calls` calls under torch.profiler, host us per
+    call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from beatrice_vst_tpu_torch.speakers import morpher
+
+    c, st = engine.state["controls"], engine.state
+
+    def lottery():
+        return morpher.codebook_lottery(
+            c["morph_weights"], c["morph_top_idx"],
+            torch.full_like(c["target_speaker"], n_speakers), st["frame_counter"],
+            w8=st["morphed"]["w8"])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            lottery()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return launches / calls, host_us(lottery)
+
+
+def refresh_span(engine):
+    """flush_controls between CUDA events, after a synchronise: (span ms,
+    host ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    engine.flush_controls()
+    host_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), host_ms
+
+
+def morph_golden_check(device, config):
+    """The morph scenario (golden.run_morph: 6 streams x 20 ticks, two
+    morph slots) on the card against the JAX engine's output in
+    tests/data/torch_morph_golden.npz (bf16: the envelope against the JAX
+    slots f32 and bf16 runs)."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
+
+    ref = golden.load(MORPH_GOLDEN)
+    engine = StreamEngine(EngineConfig.realtime(golden.MORPH_CAPACITY,
+                                                **golden.MORPH_CONFIGS[config]),
+                          *klatt8(device), device=device)
+    got = golden.run_morph(engine, lambda t: t.cpu().numpy())
+    form = ENGINE_CONFIGS[config][1]
+    return golden_gate(f"morph {config}", form, got,
+                       ref["slots_f32" if form == "bfloat16" else config], ref[config])
+
+
+def morph_phase(device, config, card):
+    """Half the streams morphing at capacity 256 in one configuration:
+    every odd stream's morph controls staged after the direct streams
+    settle, the refresh (flush_controls) timed twice (the second warm);
+    MORPH_TICKS ticks with the launch counts set to 0 just before and read
+    just after (the configuration's kernel form once per tick), outputs
+    finite and not silent (the morph streams too); the direct engine's
+    ticks in the same run, half before and half after; the first
+    COMPARE_TICKS against a plain-upsampler engine with the same morphs,
+    staged the same way; the memory allocated before the ticks (every
+    engine alive in the process) and the ticks' peak above it;
+    the morph golden run.  Returns the launches of its kernel form and what
+    `morph_profile_phase` profiles later (no profiler runs before every
+    configuration's ticks are timed)."""
+    import torch
+    from beatrice_vst_tpu_torch.speakers import bank as bank_mod
+
+    t0 = time.perf_counter()
+    form = ENGINE_CONFIGS[config][1]
+    tol = KERNEL_TOL[form]
+    audio = engine_audio(device)
+    engines = {}
+    for name, kernel in (("morph", True), ("plain", False), ("direct", True)):
+        engines[name] = build_engine(device, config, upsampler_kernel=kernel)
+        engines[name].flush_controls()
+    n_spk = bank_mod.n_speakers(engines["morph"].bank)
+    controls = morph_controls(device, n_spk)
+    eng = engines["morph"]
+    refresh = []
+    for _ in range(2):  # the second refresh is warm
+        set_morph(eng, controls, n_spk)
+        refresh.append(refresh_span(eng))
+    set_morph(engines["plain"], controls, n_spk)
+    engines["plain"].flush_controls()
+    n_slot_leases = len(eng._morph_slot)
+
+    half = MORPH_TICKS // 2
+    _, direct_finite, direct_a, direct_host_a, _ = timed_ticks(engines["direct"], audio, half)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    peaks, finite, spans, host_ms, kept = timed_ticks(eng, audio, MORPH_TICKS, COMPARE_TICKS)
+    counts = launch_counts()
+    tick_mib = (torch.cuda.max_memory_allocated() - live) / 2**20
+    if counts[form] != MORPH_TICKS or sum(counts.values()) != MORPH_TICKS:
+        raise AssertionError(f"morph {config}: kernel launches {counts} in {MORPH_TICKS} ticks, "
+                             f"expected {MORPH_TICKS} of the {form} form only")
+    _, direct_finite_b, direct_b, direct_host_b, _ = timed_ticks(
+        engines["direct"], audio[half:], MORPH_TICKS - half)
+    if not (finite and direct_finite and direct_finite_b):
+        raise AssertionError(f"morph {config}: non-finite engine output")
+    morph_peak = float(peaks[:, 1::2].max(dim=0).values.min())
+    if float(peaks.max(dim=1).values.min()) <= 1e-3 or morph_peak <= 1e-3:
+        raise AssertionError(f"morph {config}: silent output (quietest morph stream {morph_peak})")
+
+    diff = 0.0
+    before = launch_counts()
+    for k in range(COMPARE_TICKS):
+        diff = max(diff, float((engines["plain"].tick(audio[k]) - kept[k]).abs().max()))
+    if launch_counts() != before:
+        raise AssertionError(f"morph {config}: the plain-upsampler engine launched the kernel")
+    if not np.isfinite(diff) or diff > tol:
+        raise AssertionError(f"morph {config}: kernel engine vs plain engine: max|d| {diff} > "
+                             f"{tol}")
+    direct = direct_a[MORPH_WARMUP_TICKS:] + direct_b
+    times = spans[MORPH_WARMUP_TICKS:]
+    log("morph", t0, config=config, kernel_form=form, capacity=CAPACITY,
+        morph_streams=len(controls), morph_slots_leased=n_slot_leases, ticks=MORPH_TICKS,
+        launches=counts, refresh_ms=[r[0] for r in refresh],
+        refresh_host_ms=[r[1] for r in refresh],
+        median_tick_ms=float(np.median(times)), p90_tick_ms=float(np.percentile(times, 90)),
+        median_host_ms=float(np.median(host_ms[MORPH_WARMUP_TICKS:])),
+        direct_median_tick_ms=float(np.median(direct)),
+        direct_p90_tick_ms=float(np.percentile(direct, 90)),
+        direct_median_host_ms=float(np.median(direct_host_a[MORPH_WARMUP_TICKS:] + direct_host_b)),
+        live_mib=live / 2**20, tick_peak_over_live_mib=tick_mib,
+        plain_engine_ticks=COMPARE_TICKS, plain_engine_max_abs_diff=diff,
+        tol=tol,
+        golden=morph_golden_check(device, config), nvidia_smi=card)
+    return counts[form], (eng, engines["direct"], n_spk)
+
+
+def morph_profile_phase(device, runs, card):
+    """For each configuration's morph and direct engines, after all of
+    them were timed: device launches per tick under torch.profiler
+    (MORPH_PROFILE_TICKS ticks each), the lottery's own launches and host
+    time, and the direct engine's ticks timed again after the profiler
+    ran (MORPH_AFTER_PROFILER_TICKS, median after MORPH_WARMUP_TICKS)."""
+    audio = engine_audio(device)
+    start = MORPH_TICKS + MORPH_PROFILE_TICKS
+    for config, (eng, direct, n_spk) in runs.items():
+        t0 = time.perf_counter()
+        lottery, lottery_us = lottery_launches(eng, n_spk)
+        per_tick = {"morph": tick_launches(eng, audio[MORPH_TICKS:], MORPH_PROFILE_TICKS),
+                    "direct": tick_launches(direct, audio[MORPH_TICKS:], MORPH_PROFILE_TICKS)}
+        _, finite, after, after_host, _ = timed_ticks(direct, audio[start:],
+                                                      MORPH_AFTER_PROFILER_TICKS)
+        if not finite:
+            raise AssertionError(f"morph profile {config}: non-finite engine output")
+        log("morph_profile", t0, config=config, device_launches_per_tick=per_tick,
+            lottery_launches=lottery, lottery_host_us=lottery_us,
+            direct_median_tick_ms_after_profiler=float(np.median(after[MORPH_WARMUP_TICKS:])),
+            direct_median_host_ms_after_profiler=float(np.median(after_host[MORPH_WARMUP_TICKS:])),
+            nvidia_smi=card)
+
+
+def morph_offline_phase(device, card):
+    """convert_utterance with morph weights (golden.MORPH_WEIGHTS of
+    MORPH_OFFLINE_STREAM) on klatt8 against the JAX package's output in
+    tests/data/torch_morph_golden.npz at atol 1e-3."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+
+    t0 = time.perf_counter()
+    params, bank = klatt8(device)
+    weights = np.asarray(golden.MORPH_WEIGHTS[golden.MORPH_OFFLINE_STREAM], np.float32)
+    got = convert_utterance(params, VoiceConverterConfig.for_version(V20RC0), bank,
+                            golden.offline_signal(), golden.OFFLINE_RATE,
+                            ConversionSettings(**golden.OFFLINE_SETTINGS, morph_weights=weights),
+                            chunk_frames=golden.OFFLINE_CHUNK_FRAMES, device=device)
+    want = golden.load(MORPH_GOLDEN)["offline"]
+    dev = golden.deviation(got, want)
+    if got.shape != want.shape or not dev["max"] <= golden.F32_ATOL:
+        raise AssertionError(f"morph offline vs the golden file: shape {got.shape} "
+                             f"(want {want.shape}), {dev} > {golden.F32_ATOL}")
+    log("morph_offline", t0, model="klatt8", weights=weights.tolist(), vs_golden=dev,
+        tol=golden.F32_ATOL, nvidia_smi=card)
+
+
 def profile_phase(device, out_dir, config, ticks=20):
     """Where the engine's tick time goes in one configuration: `ticks`
     ticks at capacity 256 under torch.profiler after warm-up.  Prints
@@ -790,6 +1056,12 @@ def main() -> int:
     by_path = {form: {} for form in KERNEL_NAME}
     for config, (_, form) in ENGINE_CONFIGS.items():
         by_path[form][f"engine_{config}"] = engine_phase(device, config)
+    morph_runs = {}
+    for config, (_, form) in ENGINE_CONFIGS.items():
+        by_path[form][f"morph_{config}"], morph_runs[config] = morph_phase(device, config, card)
+    morph_profile_phase(device, morph_runs, card)
+    del morph_runs
+    morph_offline_phase(device, card)
     by_path["float32"]["parity_stream"] = parity_phase(device)
     offline_phase(device)
     by_path["float32"]["versions"] = versions_phase(device)

@@ -4,8 +4,10 @@ through the plain version and against the golden file of the JAX engine,
 in the three configurations, the exact int8 contractions, and a tick
 without host synchronisation; offline conversion against the golden file
 of the JAX package's, and a tick of 25 frames (the stage loop) against 25
-real-time ticks (the kernel) for 2.0.0-rc.0 and 2.0.0-alpha.2.  They skip
-where torch.cuda.is_available() is false.
+real-time ticks (the kernel) for 2.0.0-rc.0 and 2.0.0-alpha.2; with morph
+streams, a warm tick without host synchronisation, tie order on the card,
+and the morph golden file.  They skip where torch.cuda.is_available() is
+false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
 
@@ -270,6 +272,73 @@ def test_warm_tick_makes_no_host_synchronisation(cuda_device, config):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_morph_warm_tick_makes_no_host_synchronisation(cuda_device, config):
+    """With morph streams (the codebook lottery, morph slots or morphed K/V
+    cache rows) a warm engine_tick still copies nothing to the host and
+    waits for nothing."""
+    from beatrice_vst_tpu_torch.runtime.engine import engine_tick
+
+    e = _engine(config, cuda_device)
+    for i in range(e.cfg.capacity):
+        e.admit()
+        e.set_control(i, "target_speaker", i % 8)
+    for i, weights in enumerate(golden.MORPH_WEIGHTS[1:5]):
+        golden.set_morph(e, 2 * i + 1, *golden.morph_controls(weights))
+    x = torch.zeros((e.cfg.capacity, 480), device=cuda_device)
+    for _ in range(2):
+        e.tick(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, state = engine_tick(e.params, e.bank, e.state, x, cfg=e.cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert state["frame_counter"].tolist() == [3] * e.cfg.capacity
+
+
+@pytest.mark.cuda
+def test_prune_top_k_orders_ties_by_index_on_the_card(cuda_device):
+    """Exact ties come in index order on the card as on the CPU (the
+    order decides the lottery's picks)."""
+    from beatrice_vst_tpu_torch.speakers.morpher import pruned_morph_weights
+
+    dense = torch.zeros(4, 256)
+    dense[0, [3, 1]] = 0.5
+    dense[1, [7, 2, 5]] = 1 / 3
+    dense[2, :10] = 0.1
+    counts = torch.tensor([8, 8, 256, 4])
+    want = pruned_morph_weights(dense, counts)
+    got = pruned_morph_weights(dense.to(cuda_device), counts.to(cuda_device))
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert want[1][0, :3].tolist() == [1, 3, 0]
+
+
+@pytest.mark.cuda
+def test_morph_engine_on_the_card_matches_the_golden_file(cuda_device):
+    """The morph scenario (tests/data/torch_morph_golden.npz) through the
+    kernel engine in each configuration: f32 at atol 1e-3, bf16 by the
+    envelope."""
+    from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
+
+    ref = golden.load(os.path.join(os.path.dirname(GOLDEN), "torch_morph_golden.npz"))
+    params, bank = _klatt8(cuda_device)
+    for config, kw in golden.MORPH_CONFIGS.items():
+        engine = StreamEngine(EngineConfig.realtime(golden.MORPH_CAPACITY, **kw), params, bank,
+                              device=cuda_device)
+        got = golden.run_morph(engine, lambda t: t.cpu().numpy())
+        if config.endswith("bf16"):
+            env = golden.envelope(got, {"f32": ref["slots_f32"], "bf16": ref[config]})
+            assert env["ok"], env
+        else:
+            np.testing.assert_allclose(got, ref[config], rtol=0, atol=golden.F32_ATOL,
+                                       err_msg=config)
 
 
 @pytest.mark.cuda

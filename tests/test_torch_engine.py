@@ -207,14 +207,20 @@ def test_engine_defaults_to_cuda_and_raises_without_it(klatt8_port):
 
 
 def test_morph_and_unknown_controls_raise(klatt8_port):
+    """A negative target speaker, an unknown control and malformed morph
+    controls raise at set_control (morph mode itself is accepted:
+    tests/test_torch_morph_engine.py)."""
     eng = StreamEngine(EngineConfig.realtime(2), *klatt8_port, device="cpu")
     i = eng.admit()
     with pytest.raises(BeatriceError, match="SPEAKER_ID_OUT_OF_RANGE"):
-        eng.set_control(i, "target_speaker", 8)  # == n_speakers: morph mode
-    with pytest.raises(BeatriceError):
         eng.set_control(i, "target_speaker", -1)
-    with pytest.raises(KeyError, match="morph_weights"):
-        eng.set_control(i, "morph_weights", np.zeros(256, np.float32))
+    with pytest.raises(KeyError, match="morph_weight"):
+        eng.set_control(i, "morph_weight", np.zeros(256, np.float32))
+    with pytest.raises(ValueError, match="morph_weights"):
+        eng.set_control(i, "morph_weights", np.zeros(8, np.float32))
+    with pytest.raises(BeatriceError, match="SPEAKER_ID_OUT_OF_RANGE"):
+        eng.set_control(i, "morph_top_idx", np.full(8, 256, np.int32))
+    assert sorted(eng.stage.drain()) == ["active", "kv_slot"]  # admission's edits only
 
 
 def test_stream_table_mute_and_sanitization(klatt8_port):

@@ -175,18 +175,19 @@ def test_golden_file_matches_jax(runs):
 
 def test_auto_chunking_and_morph_weights(klatt8):
     """chunk_frames=None chunks beyond 384 frames, as in the JAX package;
-    morph weights raise (morphing is not ported)."""
+    more morph weights than 256 speakers, or a negative target speaker,
+    raise (morph conversion: tests/test_torch_morph_engine.py)."""
     for n, frames in ((48000, 384), (48001, 384), (100, 1)):
         assert PO.audio_longer_than(np.zeros(n), 48000, frames) == \
             JO.audio_longer_than(np.zeros(n), 48000, frames)
     params, bank = klatt8[3:]
-    settings = dataclasses.replace(PO.ConversionSettings(), morph_weights=np.ones(8, np.float32))
+    settings = dataclasses.replace(PO.ConversionSettings(), morph_weights=np.ones(257, np.float32))
     with pytest.raises(BeatriceError, match="SPEAKER_ID_OUT_OF_RANGE"):
         PO.convert_utterance(params, PCFG, bank, np.zeros(1600, np.float32), 16000, settings,
                              device="cpu")
     with pytest.raises(BeatriceError, match="SPEAKER_ID_OUT_OF_RANGE"):
         PO.convert_utterance(params, PCFG, bank, np.zeros(1600, np.float32), 16000,
-                             PO.ConversionSettings(target_speaker=8), device="cpu")
+                             PO.ConversionSettings(target_speaker=-1), device="cpu")
 
 
 if __name__ == "__main__":

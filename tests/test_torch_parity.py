@@ -5,8 +5,10 @@ real-time ticks through carried state, on the port's engine, with
 parameters from the JAX package's `chain.init` and a bank from its
 `random_bank` passed through `params_from_numpy`.  On the CPU both halves
 run the plain head (the fused head's plain version at T = 1, the stage
-loop at T = 20).  Gate: max |d| <= 1e-3, the JAX harness's.  Run with -s
-to see the measured numbers."""
+loop at T = 20).  With morph controls (2.0.0-beta.1, and 2.0.0-rc.0 with
+a one-speaker morph), the JAX harness is run on the same controls too and
+must pass.  Gate: max |d| <= 1e-3, the JAX harness's.  Run with -s to see
+the measured numbers."""
 
 import functools
 
@@ -17,9 +19,10 @@ import torch
 
 from beatrice_vst_tpu.constants import V20A2, V20B1, V20RC0
 from beatrice_vst_tpu.models import chain as JC
+from beatrice_vst_tpu.parity import run_parity as jax_run_parity
 from beatrice_vst_tpu.speakers.bank import random_bank
+from beatrice_vst_tpu_torch import golden
 from beatrice_vst_tpu_torch.constants import VERSIONS
-from beatrice_vst_tpu_torch.errors import BeatriceError
 from beatrice_vst_tpu_torch.models import chain as PC
 from beatrice_vst_tpu_torch.parity import run_parity
 
@@ -64,6 +67,25 @@ def test_parity_with_pitch_controls(engine_kw):
     assert report.passed, str(report)
 
 
-def test_parity_rejects_a_morph_target():
-    with pytest.raises(BeatriceError, match="SPEAKER_ID_OUT_OF_RANGE"):
-        _parity("20rc0", n_frames=2, controls={"target_speaker": 4})
+# dense morph weights over the 4-speaker bank: three speakers for
+# 2.0.0-beta.1 (no VQ, so no lottery); one for 2.0.0-rc.0, whose lottery
+# then always picks it (the chunk tick draws once for its 15 frames, the
+# streaming ticks once a frame, so a morph of several speakers would differ)
+MORPHS = {"20b1": [0.5, 0.3, 0.2, 0.0], "20rc0": [0.0, 0.0, 1.0, 0.0]}
+
+
+@pytest.mark.parametrize("name", sorted(MORPHS))
+def test_parity_with_morph_controls(name):
+    """Morph streams (target 4, the bank's speaker count) primed by
+    refresh_conditioning in both engines: the JAX harness passes on these
+    controls, and so must the port's."""
+    cfg, params, bank = _jax_model(name)
+    pruned, top = golden.morph_controls(MORPHS[name], 4)
+    controls = {"target_speaker": 4, "morph_weights": pruned, "morph_top_idx": top,
+                "vq_num_neighbors": 3}
+    want = jax_run_parity(params, None, {k: jax.numpy.asarray(v) for k, v in bank.items()},
+                          spec=SPECS[name], n_frames=15, controls=controls)
+    print(f" JAX: {want}", end="")
+    assert want.passed, str(want)
+    report = _parity(name, n_frames=15, controls=controls)
+    assert report.passed, str(report)
