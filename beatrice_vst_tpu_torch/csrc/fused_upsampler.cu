@@ -1,6 +1,10 @@
 // Fused vocoder upsampler head, one 10 ms frame (T = 1) per stream, in two
 // forms: f32, and bf16 storage with f32 arithmetic.
 // Version 2: tiles of 16 streams over thread-block clusters of 8 CTAs.
+// The f32 form is the wrapper's f32 route.  The bf16 route launches the
+// tensor-core kernel of fused_upsampler_bf16.cu; the bf16 form here stays
+// only as the yardstick that chip_smoke.py times it against
+// (models/fused_upsampler.py: _fused_upsample(..., source="fused_upsampler")).
 //
 // Replaces the TPU kernel beatrice_vst_tpu/models/pallas_upsampler.py:203
 // fused_upsample (pl.pallas_call at :260, with _kernel :115, _stage :83 and
@@ -69,9 +73,10 @@
 //    two CTAs fit on one SM.  With one CTA per SM the card's GPCs hold 15
 //    clusters of 8 at once, and B = 256 needs 16; with two, the 16th
 //    cluster shares 8 SMs with another instead of waiting for a second wave.
-// Not used: wgmma (its 64-row tiles want 64 streams a tile, 4 tiles at
-// B = 256, which leaves most SMs idle: the route for bf16 and for larger
-// batches) and TMA (the weight slices are read once each, by __ldg).
+// Not used here: wgmma (its 64-row tiles want 64 streams a tile, 4 tiles at
+// B = 256, which leaves most SMs idle) and TMA (the weight slices are read
+// once each, by __ldg).  The bf16 route's tensor-core kernel, with mma.sync
+// and TMA weight streaming, is fused_upsampler_bf16.cu.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

@@ -55,25 +55,29 @@ def library_path(name: str) -> Path:
 def build(names) -> dict[str, str]:
     """Build the libraries of the given sources that are not built yet,
     one `nvcc` process per source, all started together.  Returns each
-    name's compiler log (register and shared-memory use from -Xptxas -v);
+    name's compiler log (register and shared-memory use from -Xptxas -v),
+    kept beside the library, so a library built earlier gives its log too;
     raises with the log if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, logs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    logs, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(name)
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
@@ -86,3 +90,12 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def sass(name: str) -> str:
+    """The SASS (machine code) of the library of `csrc/<name>.cu`, built if
+    needed, as `cuobjdump -sass` prints it (cuobjdump comes with nvcc)."""
+    build([name])
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(name))], capture_output=True,
+                          text=True, check=True).stdout

@@ -22,9 +22,14 @@ kernel's `compute_dtype` (`pallas_upsampler.py:204`):
 
 `fused_upsample` is the wrapper: on a CPU tensor it runs
 `fused_upsample_reference`; on a CUDA tensor it launches the kernel of
-`csrc/fused_upsampler.cu` in the form of h's dtype (built with `nvcc`,
-loaded with `ctypes`) or raises.  `launches` and `launches_bf16` count
-the two forms' kernel launches and nothing else.
+the form of h's dtype (built with `nvcc`, loaded with `ctypes`) or
+raises: f32 `csrc/fused_upsampler.cu`, bf16 `csrc/fused_upsampler_bf16.cu`
+(tensor cores).  `launches` and `launches_bf16` count the two forms'
+kernel launches and nothing else.  Two earlier kernels stay as yardsticks
+that `chip_smoke.py` times the forms against, reachable only through
+`_fused_upsample(..., source=...)` and counted in `yardstick_launches`:
+the f32 form's first version (`csrc/fused_upsampler_v1.cu`) and the bf16
+form that does its arithmetic as f32 FFMA (`csrc/fused_upsampler.cu`).
 
 Bound on an H100 SXM (`bound_ms`; the source note in the .cu has the
 count): 3.66 MFLOP per stream, so 0.94 GFLOP at B=256.  f32: over 67
@@ -38,6 +43,7 @@ it moves 17.8 KB per stream plus 1.1 MB of weights, 5.66 MB at B=256,
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -63,6 +69,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 # set to 0
 launches = 0
 launches_bf16 = 0
+# launches of the yardsticks, by (source, dtype)
+yardstick_launches = collections.Counter()
 
 
 def _stage_dims():
@@ -150,15 +158,15 @@ _STORED = frozenset([*range(6), *(10 + 5 * i for i in range(4)),
 
 
 def _check(up_params, final_params, h, states, src_feats):
-    """Every argument's shape, dtype and device, and for the kernel its
-    contiguity and alignment.  Returns the 32 tensors in launch order: h,
-    the 5 carries, the 4 source tensors, then `_flat_weights`."""
+    """Every argument's shape, dtype and device, and where h is on CUDA
+    what the kernel needs of its layout (`_check_layout`).  Returns the 32
+    tensors in launch order: h, the 5 carries, the 4 source tensors, then
+    `_flat_weights`."""
     if len(up_params) != len(RATES) or len(states) != len(RATES) + 1 \
             or len(src_feats) != len(RATES):
         raise ValueError("fused_upsample takes 4 stages, 5 carries and 4 source tensors")
     if h.dtype not in DTYPES:
         raise ValueError(f"fused_upsample computes in float32 or bfloat16, not {h.dtype}")
-    kernel = h.device.type == "cuda"
     b = h.shape[0]
     want_h, want_states, want_src, want_stages, want_final = expected_shapes(b)
     wants = [want_h, *want_states, *want_src]
@@ -176,11 +184,18 @@ def _check(up_params, final_params, h, states, src_feats):
                              f"(h is {h.dtype}; mixed dtypes are refused)")
         if t.device != h.device:
             raise ValueError(f"fused_upsample argument {i} is on {t.device}, h on {h.device}")
-        if kernel and not t.is_contiguous():
-            raise ValueError(f"fused_upsample argument {i} is not contiguous")
-        if kernel and t.data_ptr() % _ALIGN:
-            raise ValueError(f"fused_upsample argument {i} is not {_ALIGN}-byte aligned")
+    if h.device.type == "cuda":
+        _check_layout(got)
     return got
+
+
+def _check_layout(tensors):
+    """The kernel reads every argument as contiguous 16-byte vectors."""
+    for i, t in enumerate(tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_upsample argument {i} is not contiguous")
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(f"fused_upsample argument {i} is not {_ALIGN}-byte aligned")
 
 
 def head_params(up_params, final_params, dtype):
@@ -232,8 +247,8 @@ def fused_upsample_reference(up_params, final_params, h, states, src_feats):
 
 
 class _Args(ctypes.Structure):
-    """Mirror of `FusedUpsamplerArgs<T>` in csrc/fused_upsampler.cu (the
-    same pointers for both forms)."""
+    """Mirror of `FusedUpsamplerArgs<T>` in csrc/fused_upsampler.cu and
+    csrc/fused_upsampler_bf16.cu (the same pointers for every form)."""
 
     _fields_ = [
         ("h", ctypes.c_void_p),
@@ -269,7 +284,10 @@ def _pack(tensors, audio, new_states) -> _Args:
     return args
 
 
-# the launcher and the occupancy query of each form in csrc/fused_upsampler.cu
+# the source of each form, and of the yardstick it is timed against
+FORMS = {torch.float32: "fused_upsampler", torch.bfloat16: "fused_upsampler_bf16"}
+YARDSTICKS = {torch.float32: "fused_upsampler_v1", torch.bfloat16: "fused_upsampler"}
+# every source names its launcher and occupancy query by the dtype alone
 _ENTRY = {torch.float32: ("fused_upsampler_launch", "fused_upsampler_occupancy"),
           torch.bfloat16: ("fused_upsampler_bf16_launch", "fused_upsampler_bf16_occupancy")}
 
@@ -280,8 +298,8 @@ def _launcher(source: str, dtype):
     loaded, its argument types set."""
     from .. import cuda_build
 
-    if source != "fused_upsampler" and dtype != torch.float32:
-        raise ValueError(f"csrc/{source}.cu has an f32 form only")
+    if source not in (FORMS[dtype], YARDSTICKS[dtype]):
+        raise ValueError(f"csrc/{source}.cu is not the {dtype} form or its yardstick")
     fn = getattr(cuda_build.load_library(source), _ENTRY[dtype][0])
     # (const FusedUpsamplerArgs<T>*, int batch, cudaStream_t)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -295,7 +313,7 @@ def occupancy(device=None, dtype=torch.float32) -> dict:
     dtype's form."""
     from .. import cuda_build
 
-    query = getattr(cuda_build.load_library("fused_upsampler"), _ENTRY[dtype][1])
+    query = getattr(cuda_build.load_library(FORMS[dtype]), _ENTRY[dtype][1])
     query.argtypes = [ctypes.c_void_p, ctypes.c_void_p]  # (int* clusters, int* smem_bytes)
     query.restype = ctypes.c_int
     clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
@@ -314,26 +332,30 @@ def fused_upsample(up_params, final_params, h, states, src_feats):
     return _fused_upsample(up_params, final_params, h, states, src_feats)
 
 
-def _fused_upsample(up_params, final_params, h, states, src_feats, source="fused_upsampler"):
-    """`fused_upsample` with the kernel of csrc/<source>.cu (another
-    version of the kernel with the same launcher, for timing against)."""
+def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
+    """`fused_upsample` with the kernel of csrc/<source>.cu: by default the
+    form of h's dtype, else its yardstick (`YARDSTICKS`), for timing
+    against."""
     global launches, launches_bf16
     got = _check(up_params, final_params, h, states, src_feats)
     if h.device.type == "cpu":
         return fused_upsample_reference(up_params, final_params, h, states, src_feats)
     if h.device.type != "cuda":
         raise ValueError(f"fused_upsample runs on cpu or cuda, not {h.device}")
+    source = source or FORMS[h.dtype]
+    launch = _launcher(source, h.dtype)
     b = h.shape[0]
     audio = torch.empty((b, OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
     new_states = [torch.empty_like(s) for s in states]
     args = _pack(got, audio, new_states)
-    launch = _launcher(source, h.dtype)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = launch(ctypes.addressof(args), b, stream)
     if err != 0:
         raise RuntimeError(f"fused_upsampler kernel launch failed: CUDA error {err}")
-    if h.dtype == torch.float32:
+    if source != FORMS[h.dtype]:
+        yardstick_launches[source, str(h.dtype)] += 1
+    elif h.dtype == torch.float32:
         launches += 1
     else:
         launches_bf16 += 1

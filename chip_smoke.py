@@ -6,9 +6,14 @@
 Phases, each printing one line with its seconds:
   1. env     -- Python, torch and CUDA versions; the card's name and power
                 limit from nvidia-smi.
-  2. build   -- builds every CUDA kernel of the port from csrc/ with nvcc,
-                and the first version of the upsampler kernel
-                (csrc/fused_upsampler_v1.cu), one nvcc each, all at once.
+  2. build   -- builds every CUDA kernel of the port from csrc/ with nvcc
+                (the f32 form csrc/fused_upsampler.cu, the bf16 form
+                csrc/fused_upsampler_bf16.cu on the tensor cores) and the
+                yardsticks they are timed against (csrc/fused_upsampler_v1.cu,
+                the f32 form's first version; the FFMA bf16 form in
+                csrc/fused_upsampler.cu), one nvcc each, all at once; each
+                source's ptxas registers and spills, and the HMMA
+                (tensor-core) instructions in its SASS.
   3. kernel  -- each form of each kernel (the upsampler head in f32 and in
                 bf16) against its plain PyTorch version on the card at
                 B = 16, 240, 256 (the engine's capacity) and 1024, on inputs
@@ -17,9 +22,11 @@ Phases, each printing one line with its seconds:
                 before each launch, not timed), from CUDA event pairs around
                 launches enqueued behind a device sleep so that the host
                 never sets the pace; the wrapper's host time per call; the
-                plain version's device time; the bound.  At B = 256 the
-                f32 form's first version is checked too and timed against
-                it, warm and cold, in the order v1, v2, v2, v1.
+                plain version's device time; the bound; occupancy.  Each
+                form's yardstick is checked too and timed against it, warm
+                and cold, in the order yardstick, form, form, yardstick: the
+                f32 form's first version at B = 256, the FFMA bf16 form at
+                every B.
   4. engine  -- one line per configuration (ENGINE_CONFIGS: per-stream f32;
                 the JAX default, slot bank and shared-bank VQ in f32; and
                 bf16 with the int8 slot bank and codebook): the port's
@@ -117,7 +124,9 @@ KERNEL_REPS = 50
 # fills (the host then waits for the card and device_ms reads again)
 PLAIN_REPS = 5
 FLUSH_BYTES = 128 << 20  # written before each cold-L2 launch: 2.5x the 50 MB L2
-V1 = "fused_upsampler_v1"  # the kernel's first version, timed against it
+# the batches at which each form is timed against its yardstick
+# (fused_upsampler.YARDSTICKS) in the same run
+YARDSTICK_BATCHES = {"float32": (CAPACITY,), "bfloat16": KERNEL_BATCHES}
 # name -> (EngineConfig.realtime keywords, kernel form, engine tolerance
 # against the plain-upsampler engine: the kernel's, carried through the
 # upsampler state)
@@ -279,10 +288,11 @@ def kernel_phase(device, dtype_name):
     """One form of the kernel against its plain version at B in
     KERNEL_BATCHES: max |d| of audio and the 5 carries, device ms with L2
     warm and cold, the wrapper's host us per call, the plain version's
-    device ms and the bound.  For the f32 form at the engine's capacity
-    the first version (V1) is checked as well and timed against it in the
-    order v1, v2, v2, v1.  Returns the kernels-line entry (without
-    launches, which the engine phase counts)."""
+    device ms and the bound.  At YARDSTICK_BATCHES the form's yardstick
+    (the f32 form's first version, the FFMA bf16 form) is checked as well
+    and timed against it in the order yardstick, form, form, yardstick.
+    Returns the kernels-line entry (without launches, which the engine
+    phase counts)."""
     import torch
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
@@ -291,6 +301,8 @@ def kernel_phase(device, dtype_name):
     tol = KERNEL_TOL[dtype_name]
     cycles_per_ms = sleep_cycles_per_ms()
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    yardstick = FU.YARDSTICKS[dtype]
+    source = FU.FORMS[dtype]
     occupancy = FU.occupancy(device, dtype)
     by_batch = []
     for b in KERNEL_BATCHES:
@@ -318,30 +330,35 @@ def kernel_phase(device, dtype_name):
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": FU.bound_by(b, dtype),
                "share_of_bound": bound / warm,
                "flops": FU.flops_per_stream() * b, "bytes": FU.bytes_per_call(b, dtype)}
-        if b == CAPACITY and dtype == torch.float32:
-            def v1():
-                return FU._fused_upsample(*args, source=V1)
+        if b in YARDSTICK_BATCHES[dtype_name]:
+            def yard():
+                return FU._fused_upsample(*args, source=yardstick)
 
-            v1_diffs = max_abs_diffs(v1(), want)
-            if not np.isfinite(max(v1_diffs)) or max(v1_diffs) > tol:
-                raise AssertionError(f"{V1} vs plain at B={b}: max|d| {v1_diffs} > {tol}")
-            v1_us = host_us(v1)
-            # [warm, cold] per reading, in the order v1, v2, v2, v1
-            same_call = {V1: [], "fused_upsampler": []}
-            for name, fn, us in ((V1, v1, v1_us), ("fused_upsampler", kernel, call_us),
-                                 ("fused_upsampler", kernel, call_us), (V1, v1, v1_us)):
+            y_diffs = max_abs_diffs(yard(), want)
+            if not np.isfinite(max(y_diffs)) or max(y_diffs) > tol:
+                raise AssertionError(f"{yardstick} {dtype_name} vs plain at B={b}: "
+                                     f"max|d| {y_diffs} > {tol}")
+            y_us = host_us(yard)
+            # [warm, cold] per reading, in the order yardstick, form, form,
+            # yardstick
+            same_call = {yardstick: [], source: []}
+            for name, fn, us in ((yardstick, yard, y_us), (source, kernel, call_us),
+                                 (source, kernel, call_us), (yardstick, yard, y_us)):
                 same_call[name].append([
                     device_ms(fn, KERNEL_REPS, cycles_per_ms, us),
                     device_ms(fn, KERNEL_REPS, cycles_per_ms, us, before=flush.zero_)])
-            row.update(v1_max_abs_diff=max(v1_diffs), v1_host_us_per_call=v1_us,
-                       same_call_ms_warm_cold=same_call)
+            runs = same_call[yardstick]
+            row.update(yardstick=yardstick, yardstick_max_abs_diff=max(y_diffs),
+                       yardstick_host_us_per_call=y_us, same_call_ms_warm_cold=same_call,
+                       parent_ms=float(np.mean([r[0] for r in runs])),
+                       parent_cold_l2_ms=float(np.mean([r[1] for r in runs])))
         by_batch.append(row)
     del flush
     at = next(r for r in by_batch if r["batch"] == CAPACITY)
     entry = {
         "name": KERNEL_NAME[dtype_name],
         "route": "cuda",
-        "source": "beatrice_vst_tpu_torch/csrc/fused_upsampler.cu",
+        "source": f"beatrice_vst_tpu_torch/csrc/{source}.cu",
         "replaces": "beatrice_vst_tpu/models/pallas_upsampler.py:203",
         "dtype": dtype_name,
         "max_abs_err": at["max_abs_diff"],
@@ -355,16 +372,15 @@ def kernel_phase(device, dtype_name):
         "bound_by": at["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this fused head
         "by_batch": [{k: r[k] for k in ("batch", "ms", "cold_l2_ms", "host_us_per_call",
-                                        "plain_ms", "bound_ms", "max_abs_diff")}
+                                        "plain_ms", "bound_ms", "max_abs_diff", "parent_ms",
+                                        "parent_cold_l2_ms") if k in r}
                      for r in by_batch],
+        # the yardstick on the same inputs in the same run, timed the same
+        # way (mean of its two readings)
+        "parent": f"beatrice_vst_tpu_torch/csrc/{yardstick}.cu",
+        "parent_ms": at["parent_ms"],
+        "parent_cold_l2_ms": at["parent_cold_l2_ms"],
     }
-    if dtype == torch.float32:
-        # the first version on the same inputs in the same run, timed the
-        # same way (mean of its two readings)
-        runs = at["same_call_ms_warm_cold"][V1]
-        entry.update(parent=f"beatrice_vst_tpu_torch/csrc/{V1}.cu",
-                     parent_ms=float(np.mean([r[0] for r in runs])),
-                     parent_cold_l2_ms=float(np.mean([r[1] for r in runs])))
     log("kernel", t0, dtype=dtype_name, tol=tol, occupancy=occupancy, reps=KERNEL_REPS,
         flush_mib=FLUSH_BYTES / 2**20, by_batch=by_batch)
     return entry
@@ -427,16 +443,23 @@ def utterance(audio):
 
 
 def launch_counts():
-    """Each kernel form's launches since the counts were last set to 0."""
+    """Each kernel form's launches since the counts were last set to 0, and
+    each yardstick's (under "yardstick_<form>"; no path launches one)."""
+    import torch
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
-    return {form: getattr(FU, COUNTER[form]) for form in COUNTER}
+    counts = {form: getattr(FU, COUNTER[form]) for form in COUNTER}
+    for form in COUNTER:
+        dtype = getattr(torch, form)
+        counts[f"yardstick_{form}"] = FU.yardstick_launches[FU.YARDSTICKS[dtype], str(dtype)]
+    return counts
 
 
 def reset_launch_counts():
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
     FU.launches = FU.launches_bf16 = 0
+    FU.yardstick_launches.clear()
 
 
 def timed_ticks(engine, audio, ticks, keep=0):
@@ -497,7 +520,7 @@ def check_parity(report, spans, label):
         raise AssertionError(f"{label}: {report}")
     n = report.n_frames
     stream, chunk = spans.out["stream"]["launches"], spans.out["chunk"]["launches"]
-    if stream != {"float32": n, "bfloat16": 0} or sum(chunk.values()) != 0:
+    if stream != {**dict.fromkeys(stream, 0), "float32": n} or sum(chunk.values()) != 0:
         raise AssertionError(f"{label}: kernel launches {stream} in {n} streaming ticks and "
                              f"{chunk} in the chunk tick; expected {n} f32 and 0")
     return stream["float32"]
@@ -721,7 +744,7 @@ def versions_phase(device):
             reset_launch_counts()
             outs[kernel] = torch.stack([engine.tick(audio[k]) for k in range(VERSION_TICKS)])
             counts = launch_counts()
-            want = {"float32": VERSION_TICKS if kernel else 0, "bfloat16": 0}
+            want = {**dict.fromkeys(counts, 0), "float32": VERSION_TICKS if kernel else 0}
             if counts != want:
                 raise AssertionError(f"{spec.name} engine (kernel {kernel}): launches {counts}, "
                                      f"expected {want}")
@@ -1047,10 +1070,16 @@ def main() -> int:
     from beatrice_vst_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["fused_upsampler", V1])
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    sources = sorted({*FU.FORMS.values(), *FU.YARDSTICKS.values()})
+    logs = cuda_build.build(sources)
     ptxas = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
              for name, text in logs.items()}
-    log("build", t0, built=sorted(logs), ptxas=ptxas)
+    hmma = {name: cuda_build.sass(name).count("HMMA") for name in sources}
+    if not hmma[FU.FORMS[torch.bfloat16]]:
+        raise AssertionError("the tensor-core bf16 form has no HMMA instruction in its SASS")
+    log("build", t0, built=sorted(logs), ptxas=ptxas, sass_hmma=hmma)
 
     entries = {form: kernel_phase(device, form) for form in KERNEL_NAME}
     by_path = {form: {} for form in KERNEL_NAME}

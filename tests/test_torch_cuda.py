@@ -1,5 +1,8 @@
 """Card-only tests of the port: each form of the CUDA kernel against its
-plain PyTorch version, the engine through the kernel against the engine
+plain PyTorch version (the f32 form of csrc/fused_upsampler.cu and the
+tensor-core bf16 form of csrc/fused_upsampler_bf16.cu), the bf16 form
+against its yardstick (the FFMA bf16 form) and its SASS, the engine
+through the kernel against the engine
 through the plain version and against the golden file of the JAX engine,
 in the three configurations, the exact int8 contractions, and a tick
 without host synchronisation; offline conversion against the golden file
@@ -145,6 +148,31 @@ def test_fused_upsampler_is_deterministic(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 1024])
+def test_fused_upsampler_bf16_matches_the_ffma_form(cuda_device, b):
+    """The tensor-core bf16 form against its yardstick, the FFMA bf16 form
+    of csrc/fused_upsampler.cu, on the same inputs: both round where the
+    plain version does, their f32 sums differ in order."""
+    args = _upsampler_args(b, 11, cuda_device, torch.bfloat16)
+    before = FU.launches_bf16
+    got = FU.fused_upsample(*args)
+    ffma = FU._fused_upsample(*args, source=FU.YARDSTICKS[torch.bfloat16])
+    torch.cuda.synchronize()
+    assert FU.launches_bf16 == before + 1  # the yardstick's launch is not the form's
+    torch.testing.assert_close(got[0], ffma[0], rtol=0, atol=BF16_TOL)
+    for g, w in zip(got[1], ffma[1]):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_tensor_core_form_has_hmma_in_its_sass(cuda_device):
+    from beatrice_vst_tpu_torch import cuda_build
+
+    assert FU.FORMS[torch.bfloat16] == "fused_upsampler_bf16"
+    assert cuda_build.sass("fused_upsampler_bf16").count("HMMA") > 0
+
+
+@pytest.mark.cuda
 def test_fused_upsampler_interleaved_parameter_sets(cuda_device):
     # two parameter sets and batches, launched in turn without a synchronise
     first, second = _upsampler_args(16, 1, cuda_device), _upsampler_args(33, 2, cuda_device)
@@ -216,6 +244,25 @@ def test_engine_kernel_matches_plain_engine(cuda_device, config):
         want = engines[1].tick(audio[k])
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
     assert getattr(FU, _counter(config)) == before + ticks
+
+
+@pytest.mark.cuda
+def test_slots_bf16_tick_launches_the_tensor_core_form_once(cuda_device):
+    cap = 8
+    engine = _engine("slots_bf16", cuda_device, cap=cap)
+    for i in range(cap):
+        engine.admit()
+        engine.set_control(i, "target_speaker", i)
+    rng = np.random.default_rng(1)
+    audio = torch.from_numpy((rng.standard_normal((2, cap, 480)) * 0.1)
+                             .astype(np.float32)).to(cuda_device)
+    engine.tick(audio[0])
+    torch.cuda.synchronize()
+    before = (FU.launches_bf16, FU.launches, dict(FU.yardstick_launches))
+    engine.tick(audio[1])
+    torch.cuda.synchronize()
+    assert (FU.launches_bf16, FU.launches, dict(FU.yardstick_launches)) == (
+        before[0] + 1, before[1], before[2])
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The upsampler head's plain PyTorch version against the TPU kernel
 (`fused_upsample(..., interpret=True)`, as tests/test_pallas.py runs it on
-the CPU), and the wrapper's CPU route and checks.  The CUDA kernel itself
-is held against the plain version in tests/test_torch_cuda.py.
+the CPU), and the wrapper's CPU route, checks, choice of kernel source and
+build key, without building anything.  The CUDA kernels themselves are
+held against the plain version in tests/test_torch_cuda.py.
 
 Tolerances against the Pallas kernel: f32 audio rtol 1e-4 / atol 1e-5
 and carries rtol 1e-5 / atol 1e-6, as tests/test_pallas.py holds it
@@ -10,6 +11,8 @@ carries): f32 sums in another order can put a stage output on the other
 side of a bf16 rounding, so each carry is held within 1 bf16 ulp of its
 largest value and the audio at atol 1e-4 (measured: 1.5e-5, carries
 within 1.9e-6)."""
+
+import types
 
 import numpy as np
 import jax
@@ -177,23 +180,128 @@ def test_bf16_bound_matches_the_hand_count():
     assert FU.bound_by(16 * 1024, torch.bfloat16) == "bytes"
 
 
-def test_build_path_follows_source_headers_and_flags(tmp_path, monkeypatch):
+@pytest.mark.parametrize("name", ["fused_upsampler", "fused_upsampler_bf16",
+                                  "fused_upsampler_v1"])
+def test_build_path_follows_source_headers_and_flags(tmp_path, monkeypatch, name):
+    # each kernel source, the tensor-core bf16 form's too, keyed by its own
+    # text, every header in csrc/ and the flags
+    text = (cuda_build.CSRC / f"{name}.cu").read_text()
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
-    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / f"{name}.cu").write_text(text)
     (tmp_path / "k.cuh").write_text("// v1\n")
-    first = cuda_build.library_path("k")
-    assert cuda_build.library_path("k") == first
+    first = cuda_build.library_path(name)
+    assert first.name.startswith(f"lib{name}-")
+    assert cuda_build.library_path(name) == first
     (tmp_path / "k.cuh").write_text("// v2\n")
-    second = cuda_build.library_path("k")
+    second = cuda_build.library_path(name)
     assert second != first
     (tmp_path / "other.cuh").write_text("// new header\n")
-    third = cuda_build.library_path("k")
+    third = cuda_build.library_path(name)
     assert third not in (first, second)
-    (tmp_path / "k.cu").write_text('#include "k.cuh"\n// edited\n')
-    fourth = cuda_build.library_path("k")
+    (tmp_path / f"{name}.cu").write_text(text + "// edited\n")
+    fourth = cuda_build.library_path(name)
     assert fourth not in (first, second, third)
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS", (*cuda_build.NVCC_FLAGS, "-DX"))
-    assert cuda_build.library_path("k") != fourth
+    assert cuda_build.library_path(name) != fourth
+
+
+def test_build_keeps_the_compiler_log_beside_the_library(tmp_path, monkeypatch):
+    # a stand-in nvcc that records its runs, writes the library and prints
+    # a ptxas line; a library built earlier returns its log without a rebuild
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    runs = tmp_path / "runs"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f'#!/bin/sh\necho run >> "{runs}"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n'
+                    'echo "ptxas info    : Used 42 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: str(nvcc))
+    first = cuda_build.build(["k"])
+    assert "Used 42 registers" in first["k"]
+    assert cuda_build.library_path("k").exists()
+    assert cuda_build.build(["k"]) == first
+    assert runs.read_text().count("run") == 1
+
+
+class _FakeLibrary:
+    """Stands in for a built kernel library: records the entry points
+    looked up in it."""
+
+    def __init__(self, name, looked_up):
+        self.name, self.looked_up = name, looked_up
+
+    def __getattr__(self, entry):
+        self.looked_up.append((self.name, entry))
+        return types.SimpleNamespace()
+
+
+@pytest.fixture
+def fake_build(monkeypatch):
+    """`cuda_build.load_library` replaced by one that builds nothing; the
+    entry points looked up, in order."""
+    looked_up = []
+    monkeypatch.setattr(cuda_build, "load_library", lambda name: _FakeLibrary(name, looked_up))
+    FU._launcher.cache_clear()
+    yield looked_up
+    FU._launcher.cache_clear()
+
+
+@pytest.mark.parametrize("dtype, source, entry", [
+    (torch.float32, "fused_upsampler", "fused_upsampler_launch"),
+    (torch.bfloat16, "fused_upsampler_bf16", "fused_upsampler_bf16_launch"),
+])
+def test_each_form_launches_its_own_source(fake_build, dtype, source, entry):
+    # the route of h's dtype: f32 to csrc/fused_upsampler.cu, bf16 to the
+    # tensor-core source csrc/fused_upsampler_bf16.cu
+    assert FU.FORMS[dtype] == source
+    FU._launcher(FU.FORMS[dtype], dtype)
+    assert fake_build == [(source, entry)]
+    assert (cuda_build.CSRC / f"{source}.cu").exists()
+
+
+@pytest.mark.parametrize("source, dtype, entry", [
+    ("fused_upsampler", torch.bfloat16, "fused_upsampler_bf16_launch"),  # the FFMA bf16 form
+    ("fused_upsampler_v1", torch.float32, "fused_upsampler_launch"),
+    ("fused_upsampler_v1", torch.bfloat16, None),
+    ("fused_upsampler_bf16", torch.float32, None),
+])
+def test_yardsticks_are_reachable_only_as_timing_sources(fake_build, source, dtype, entry):
+    # a yardstick is never the route of a dtype, and only its own dtype's
+    # yardstick may be launched through `_fused_upsample(..., source=...)`
+    assert FU.FORMS[dtype] != source
+    if entry is None:
+        with pytest.raises(ValueError, match="yardstick"):
+            FU._launcher(source, dtype)
+        assert fake_build == []
+        return
+    assert FU.YARDSTICKS[dtype] == source
+    FU._launcher(source, dtype)
+    assert fake_build == [(source, entry)]
+
+
+@pytest.mark.parametrize("bad", ["misaligned", "non_contiguous", "mixed_carry", "mixed_src_w"])
+def test_bf16_route_refuses_what_the_kernel_cannot_take(bad):
+    # what the wrapper checks before a bf16 launch, on CPU tensors: the
+    # arguments (`_check`) and the kernel's layout (`_check_layout`)
+    params, h, states, src = _inputs(4, seed=4)
+    up, final, th, ts, tsrc = _torch_args(params, h, states, src, dtype=torch.bfloat16)
+    got = FU._check(up, final, th, ts, tsrc)
+    assert len(got) == 32
+    FU._check_layout(got)  # well formed: accepted
+    if bad == "misaligned":
+        th = torch.empty(th.numel() + 1, dtype=th.dtype)[1:].view(th.shape).copy_(th)
+    elif bad == "non_contiguous":
+        ts[1] = ts[1].transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "mixed_carry":
+        ts[4] = ts[4].float()
+    else:
+        up[0]["src"]["w"] = up[0]["src"]["w"].float()
+    match = {"misaligned": "aligned", "non_contiguous": "contiguous"}.get(bad, "mixed")
+    with pytest.raises(ValueError, match=match):
+        FU._check_layout(FU._check(up, final, th, ts, tsrc))
 
 
 def test_launch_arguments_are_packed_in_launch_order():
