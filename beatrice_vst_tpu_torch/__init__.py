@@ -10,13 +10,18 @@ streaming-vs-chunk parity harness (`parity.py`); the three model versions
 speaker morphing (`ops/morph.py`, `ops/spherical_average.py`,
 `speakers/morpher.py`: the engine's morph controls, frame counter and
 codebook lottery, morph-slot leasing, `StreamEngine.recover()`, offline
-morph conversion and morph parity).  The vocoder's upsampler head runs at
-T = 1 as one hand-written CUDA kernel (`models/fused_upsampler.py`,
-`csrc/fused_upsampler.cu`).  Serving, multi-GPU and training are not
-ported yet.
+morph conversion and morph parity); serving (`runtime/service.py:ModelHost`,
+`runtime/server.py:StreamingServer`, the TCP, WebSocket and gRPC front
+ends, the parameter surface of `params/`, the host-edge library of
+`native/`, `cli.py`).  The vocoder's upsampler head runs at T = 1 as one
+hand-written CUDA kernel in an f32 and a bf16 form
+(`models/fused_upsampler.py`, `csrc/fused_upsampler.cu`,
+`csrc/fused_upsampler_bf16.cu`).  Sequence-parallel offline conversion,
+multi-GPU and training are not ported yet.
 
 Importing the package builds nothing and touches no GPU: kernels are
-compiled with `nvcc` at their first launch (`cuda_build.py`).
+compiled with `nvcc` at their first launch, and the host-edge library with
+the host compiler at its first use (`cuda_build.py`).
 """
 
 from .device import resolve_device

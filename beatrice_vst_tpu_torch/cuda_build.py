@@ -1,5 +1,7 @@
-"""Build and load the port's CUDA kernels: `nvcc` -> shared library ->
-`ctypes`.
+"""Build and load the port's native code: the CUDA kernels (`nvcc` ->
+shared library -> `ctypes`) and the host-edge library of the streaming
+server (`csrc/beatrice_host.cc`, the host compiler -> shared library ->
+`ctypes`).
 
 Every source in `csrc/` has a plain `extern "C"` launcher and includes no
 PyTorch header, so one `nvcc` call builds it in seconds (a source built
@@ -7,7 +9,8 @@ through `torch.utils.cpp_extension.load`, which compiles PyTorch's
 headers, takes minutes).  Libraries are built at first use into
 `_build/` beside this file, named by a hash of the source, the headers
 in `csrc/` and the flags, so an edited source or header is rebuilt and an
-unchanged one is reused.
+unchanged one is reused.  The host library is built the same way with
+`g++` (or $CXX) and the flags of `native/Makefile`; a failed build raises.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 
 def nvcc_path() -> str:
@@ -99,3 +103,39 @@ def sass(name: str) -> str:
     tool = Path(nvcc_path()).with_name("cuobjdump")
     return subprocess.run([str(tool), "-sass", str(library_path(name))], capture_output=True,
                           text=True, check=True).stdout
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: $CXX, else `g++`, resolved on PATH."""
+    name = os.environ.get("CXX") or "g++"
+    found = shutil.which(name)
+    if not found:
+        raise RuntimeError(f"host compiler {name!r} not found: put g++ on PATH or set CXX")
+    return found
+
+
+def host_library_path(name: str, compiler: str) -> Path:
+    """Where the library of `csrc/<name>.cc` built by `compiler` is (or
+    will be): named by a hash of the source, the compiler and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
+    digest.update(("\0".join((compiler, *HOST_FLAGS))).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str, compiler: str | None = None) -> Path:
+    """Build `csrc/<name>.cc` with `compiler` (the host compiler when not
+    given) if it is not built yet; returns the library's path and raises
+    with the compiler's output if the build fails."""
+    compiler = compiler or host_compiler()
+    out = host_library_path(name, compiler)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([compiler, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cc")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler} failed for {name}.cc:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -44,6 +44,23 @@ released slot to the single-speaker stream).
 match (`PYTHONPATH=. python tests/test_torch_morph_engine.py` rewrites
 it); f32 engines and offline conversion are held to it at atol 1e-3,
 slots bf16 by the envelope against "slots_f32".
+
+The serving file `tests/data/torch_serve_golden.npz` holds `run_serve`'s
+output through the JAX `ModelHost` (jit, realtime=False) on the CPU on
+klatt8: for each session i of SERVE_SESSIONS, "s{i}" the audio it pulled
+after each tick, concatenated, and "s{i}_len" the length of each pull.
+The scenario: capacity SERVE_CAPACITY, SERVE_TICKS manual ticks, each
+session fed `serve_signal` at its own rate in blocks of SERVE_BLOCKS
+samples (one tick ahead) and pulled once after each tick; a session at
+48 kHz with a voice and a pitch shift, whose output gain is edited and
+context reset just before tick SERVE_RESET_TICK; one at 44.1 kHz with a
+voice and a formant shift; one at 16 kHz in a two-voice morph set through
+the parameter surface's morph pad; one at 32 kHz opened at tick
+SERVE_OPEN_TICK and closed at tick SERVE_CLOSE_TICK.
+`tests/test_torch_serving.py` regenerates it and requires it to match
+(`PYTHONPATH=. python tests/test_torch_serving.py` rewrites it); the
+port's ModelHost is held to it at atol 1e-3, and in pipeline mode to its
+own plain run one tick later.
 """
 
 from __future__ import annotations
@@ -210,3 +227,91 @@ def envelope(got, golden) -> dict:
     return {"vs_f32": port, "jax_bf16_vs_f32": jax_bf16, "ratio": ratio,
             "ok": all(r <= ENVELOPE for r in ratio.values()),
             "vs_jax_bf16": deviation(got, golden["bf16"])}
+
+
+SERVE_CAPACITY = 4
+SERVE_TICKS = 40
+SERVE_SEED = 5
+SERVE_BLOCKS = (441, 137, 1000)  # push sizes, in turn, at the session's rate
+SERVE_RESET_TICK = 20
+SERVE_OPEN_TICK = 10
+SERVE_CLOSE_TICK = 25
+SERVE_RESET_GAIN_DB = -12.0  # session 0's output gain, set just before its reset
+
+
+def _serve_sessions():
+    """Per session: (rate, opened before tick, closed before tick or None,
+    [(parameter id, value)])."""
+    from .params.schema import ParameterID as P
+
+    morph = [(P.VOICE, MORPH_TARGET), (P.VOICE_MORPH_MARKER_COUNT, 2.0),
+             (P.VOICE_MORPH_MARKER_VOICE_BASE, 1.0), (P.VOICE_MORPH_MARKER_VOICE_BASE + 1, 5.0),
+             (P.VOICE_MORPH_CURSOR_X, 0.35)]
+    return [(48000, 0, None, [(P.VOICE, 3), (P.PITCH_SHIFT, 2.0)]),
+            (44100, 0, None, [(P.VOICE, 6), (P.FORMANT_SHIFT, 0.5)]),
+            (16000, 0, None, morph),
+            (32000, SERVE_OPEN_TICK, SERVE_CLOSE_TICK, [(P.VOICE, 1)])]
+
+
+def serve_signal(rate: int, index: int, seed: int = SERVE_SEED) -> np.ndarray:
+    """Session `index`'s input at `rate`: a sine swept up from
+    100 + 30 * index Hz plus noise from a numpy seed, SERVE_TICKS + 2
+    ticks long, f32."""
+    rng = np.random.default_rng(seed + index)
+    n = np.arange((SERVE_TICKS + 2) * rate // 100) / rate
+    sweep = 0.3 * np.sin(2 * np.pi * ((100 + 30 * index) * n + 150 * n * n))
+    return (sweep + 0.02 * rng.standard_normal(n.size)).astype(np.float32)
+
+
+def run_serve(host_cls, model_dir, inspect=None, **host_kw) -> dict:
+    """The serving scenario through a fresh `host_cls(capacity=
+    SERVE_CAPACITY, realtime=False, **host_kw)` (either package's
+    ModelHost) on `model_dir`, ticked by hand: {"s{i}": the audio session
+    i pulled, concatenated; "s{i}_len": each pull's length}.  inspect(host),
+    if given, is called after the last tick, before the host stops."""
+    from .params.schema import ParameterID as P
+
+    host = host_cls(capacity=SERVE_CAPACITY, realtime=False, **host_kw)
+    if int(host.load_model(str(model_dir))) != 0:
+        raise ValueError(f"ModelHost could not load {model_dir}")
+    plan = _serve_sessions()
+    signals = [serve_signal(rate, i) for i, (rate, *_) in enumerate(plan)]
+    sessions, pushed, blocks = {}, [0] * len(plan), [0] * len(plan)
+    pulls = {i: [] for i in range(len(plan))}
+    try:
+        for k in range(SERVE_TICKS):
+            for i, (rate, opened, closed, params) in enumerate(plan):
+                if k == opened:
+                    sessions[i] = host.open_session(float(rate))
+                    for pid, value in params:
+                        if int(sessions[i].set_parameter(int(pid), value)) != 0:
+                            raise ValueError(f"session {i}: parameter {pid} = {value} refused")
+                if k == closed:
+                    sessions.pop(i).close()
+            for i, s in sessions.items():
+                rate, opened = plan[i][:2]
+                while pushed[i] < (k - opened + 2) * rate // 100:
+                    n = SERVE_BLOCKS[blocks[i] % len(SERVE_BLOCKS)]
+                    s.push(signals[i][pushed[i]:pushed[i] + n])
+                    pushed[i] += n
+                    blocks[i] += 1
+            if k == SERVE_RESET_TICK:
+                sessions[0].set_parameter(int(P.OUTPUT_GAIN), SERVE_RESET_GAIN_DB)
+                sessions[0].proxy.core.reset_context()
+            host.tick_once()
+            for i, s in sessions.items():
+                pulls[i].append(np.asarray(s.pull(plan[i][0] // 100), np.float32))
+        if inspect is not None:
+            inspect(host)
+    finally:
+        host.stop()
+    out = {}
+    for i, blocks_i in pulls.items():
+        out[f"s{i}"] = np.concatenate(blocks_i) if blocks_i else np.zeros(0, np.float32)
+        out[f"s{i}_len"] = np.asarray([len(b) for b in blocks_i], np.int64)
+    return out
+
+
+def serve_blocks(run: dict, i: int) -> list:
+    """Session i's pulls of a `run_serve` result, one array per tick."""
+    return np.split(run[f"s{i}"], np.cumsum(run[f"s{i}_len"])[:-1])

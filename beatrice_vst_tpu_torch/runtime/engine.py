@@ -48,7 +48,9 @@ new state dict and leaves its input state untouched.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
+import threading
 import time
 
 import numpy as np
@@ -423,10 +425,24 @@ def prepare_bank(cfg: EngineConfig, params, bank, device="cuda") -> dict:
     return out
 
 
+def _locked(method):
+    """Run a StreamEngine method under the engine's lock: the serving
+    layer edits streams from client threads while the scheduler thread
+    flushes and ticks."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with self._lock:
+            return method(self, *args, **kw)
+
+    return run
+
+
 class StreamEngine:
     """Host-side wrapper: owns params, bank and state, the stream table
     (admit/evict), the control stage and, in slots mode, the lease of
-    morph slots.
+    morph slots.  Stream-table and control methods may be called from any
+    thread; they hold the engine's lock, as `flush_controls` does.
 
     Typical loop, one tick per T * 10 ms:
         out48 = engine.tick(in48)   # [capacity, T*480] -> [capacity, T*480]
@@ -445,6 +461,9 @@ class StreamEngine:
         # min-heap: admit() always takes the smallest free index
         self._free = list(range(cfg.capacity))
         self._pending_reset: set[int] = set()
+        # streams whose context a client reset (reset_context)
+        self._context_reset: set[int] = set()
+        self._lock = threading.RLock()
         self._slot_used = [False] * cfg.capacity
         self._morph_dirty: set[int] = set()
         self._kv_dirty: set[int] = set()
@@ -465,6 +484,7 @@ class StreamEngine:
 
     # ---- stream table ----
 
+    @_locked
     def admit(self) -> int:
         """Allocate a stream slot; returns its index (raises if full).  The
         slot's carries are reset at the next flush, and it starts from the
@@ -484,6 +504,7 @@ class StreamEngine:
         self.counters["admitted"] += 1
         return idx
 
+    @_locked
     def evict(self, idx: int) -> None:
         self.stage.stage(idx, "active", False)
         heapq.heappush(self._free, idx)
@@ -520,6 +541,7 @@ class StreamEngine:
 
     # ---- controls ----
 
+    @_locked
     def set_control(self, idx: int, field: str, value) -> None:
         """Stage one control edit for stream `idx`, applied at the next
         flush (`engine.py:750`).  A target speaker >= the bank's speaker
@@ -558,13 +580,17 @@ class StreamEngine:
                     self._morph_mode.discard(i)
                     self._release_morph_slot(i)
 
+    @_locked
     def flush_controls(self) -> None:
-        """Apply staged edits, then in the JAX engine's order
-        (`engine.py:773`): reset admitted slots, recompute the morphed
-        embeddings of streams whose morph controls changed, refresh the
-        per-stream K/V cache of streams whose speaker or morph changed
-        (per-stream mode), and project the morphed K/V into leased morph
-        slots (slots mode)."""
+        """Reset the contexts asked for by `reset_context`, then apply
+        staged edits, then in the JAX engine's order (`engine.py:773`):
+        reset admitted slots, recompute the morphed embeddings of streams
+        whose morph controls changed, refresh the per-stream K/V cache of
+        streams whose speaker or morph changed (per-stream mode), and
+        project the morphed K/V into leased morph slots (slots mode)."""
+        if self._context_reset:
+            reset_streams(self.state, self._index(sorted(self._context_reset)))
+            self._context_reset.clear()
         if self.stage.pending():
             apply_control_updates(self.state, self.stage.drain())
         if self._pending_reset:
@@ -583,9 +609,20 @@ class StreamEngine:
                              self._index([self._morph_slot[i] for i in streams]))
         self._slot_dirty.clear()
 
+    @_locked
+    def reset_context(self, idx: int) -> None:
+        """ResetContext of stream `idx` (fresh carries, controls kept), from
+        any thread.  It is staged and applied at the next flush, on the
+        thread that ticks, ahead of the staged control edits: the gains
+        restart at the targets in force when it was asked, as after the
+        JAX handle's immediate reset (`handle.py:39-46`), which leaves
+        staged edits for the next flush."""
+        self._context_reset.add(int(idx))
+
     def _index(self, values: list[int]) -> torch.Tensor:
         return torch.as_tensor(values, dtype=torch.int64, device=self.device)
 
+    @_locked
     def recover(self) -> list[int]:
         """Rebuild the device state after a device fault (`engine.py:825`),
         keeping the stream table and every control set through
@@ -596,8 +633,8 @@ class StreamEngine:
         the re-activated slots."""
         self.state = init_engine_state(self.cfg, self.device)
         self.stage = ControlStage()
-        for pending in (self._pending_reset, self._morph_dirty, self._kv_dirty,
-                        self._slot_dirty):
+        for pending in (self._pending_reset, self._context_reset, self._morph_dirty,
+                        self._kv_dirty, self._slot_dirty):
             pending.clear()
         active = [i for i in range(self.cfg.capacity)
                   if self._slot_used[i] and i not in self._free]

@@ -23,6 +23,9 @@ class EngineMetrics:
         self.ticks = 0
         self.frames = 0
         self.underruns = 0
+        # the scheduler's last failure, exported so that a recovered fault
+        # is visible (`metrics.py:26`; set by server.StreamingServer._loop)
+        self.last_error = None
         self.started = time.monotonic()
 
     def record_tick(self, duration_s: float, n_active: int, frames_per_tick: int) -> None:
@@ -48,4 +51,5 @@ class EngineMetrics:
             "tick_p50_ms": float(np.percentile(t, 50)) * 1e3,
             "tick_p99_ms": float(np.percentile(t, 99)) * 1e3,
             "underruns": self.underruns,
+            **({"last_error": self.last_error} if self.last_error else {}),
         }

@@ -26,7 +26,10 @@ Phases, each printing one line with its seconds:
                 form's yardstick is checked too and timed against it, warm
                 and cold, in the order yardstick, form, form, yardstick: the
                 f32 form's first version at B = 256, the FFMA bf16 form at
-                every B.
+                every B.  Then, untimed, max |d| at the other batches the
+                phases below launch it at (4, 6, 8 and 64: the golden runs
+                and the serving phases; all but 64 are partial tiles of 16
+                streams).
   4. engine  -- one line per configuration (ENGINE_CONFIGS: per-stream f32;
                 the JAX default, slot bank and shared-bank VQ in f32; and
                 bf16 with the int8 slot bank and codebook): the port's
@@ -85,12 +88,50 @@ Phases, each printing one line with its seconds:
                 plain-upsampler engine over 20 ticks at 1e-4, the f32 form
                 launched once per tick; then run_parity at 25 frames at
                 1e-3.
-  9. profile -- only with `--profile DIR`: where the engine's tick time
+  9. serve_golden -- the port's ModelHost(capacity=4, realtime=False) on
+                klatt8 through the serving scenario of golden.run_serve
+                (four sessions at 48, 44.1, 16 and 32 kHz in odd push
+                sizes, voices, shifts, a two-voice morph set through the
+                morph pad's parameters, a session opened and closed mid-run,
+                a gain edit staged with reset_context), ticked by hand:
+                every pull within atol 1e-3 of tests/data/
+                torch_serve_golden.npz (the JAX ModelHost's run), the f32
+                form launched once per tick, no recovery, no last_error.
+ 10. serve_pipeline -- the same with pipeline=True: each pull equal to
+                serve_golden's one tick earlier (max |d| <= 1e-6); then
+                pipeline mode with only row 0 live at capacity 8.
+ 11. serve_tcp -- `python -m beatrice_vst_tpu_torch.cli serve --model
+                models_demo/klatt8 --capacity 64` in a subprocess, in f32
+                and with --dtype bfloat16: 8 VCClients on their own threads
+                at 48, 44.1 and 16 kHz, each with a voice and a pitch shift
+                (one in a morph through the morph pad's parameters), each
+                pushing 3 s of a seeded swept sine plus noise in 10 ms
+                blocks at real-time pace and pulling until its audio is
+                back (90 %, or nothing new for 1 s).  Gates: every client
+                receives audio, finite and not silent; the metrics op shows ticks,
+                the form's kernel launches equal to them (within the one
+                tick that may run between the two reads), no recovery and
+                no last_error; no traceback on the server's stderr; the
+                server exits 0 on SIGTERM.  Reported: the scheduler's median
+                and p90 tick span (and its median over the first 50 ticks,
+                before the clients come), ticks per second while the clients run (100 is real
+                time), underruns and drops, each client's time to first
+                audio and share of its audio returned.
+ 12. serve_ws -- an in-process WSServer (port 0) over a realtime ModelHost
+                on klatt8 with one WSClient: a round trip, a model swap to
+                models_demo/klatt8_r6 through set_parameter("model", ...),
+                the controls replayed into the new engine equal to those
+                before (read from the engines' control rows), audio after
+                the swap; the f32 form's launches equal to both engines'
+                ticks, no recovery, no last_error, the scheduler alive
+                before stop().
+ 13. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
 drove it: the engine configurations, the morph engines, the streaming
-halves of parity and the older versions' engines), the card line, and the
+halves of parity, the older versions' engines and the in-process serving
+paths serve_golden, serve_pipeline and serve_ws), the card line, and the
 last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
@@ -160,6 +201,19 @@ MORPH_SEED = 11
 MORPH_PROFILE_TICKS = 3
 MORPH_AFTER_PROFILER_TICKS = 30
 MORPH_GOLDEN = os.path.join(HERE, "tests", "data", "torch_morph_golden.npz")
+SERVE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_serve_golden.npz")
+SWAP_MODEL = os.path.join(HERE, "models_demo", "klatt8_r6", "config.toml")
+PIPELINE_TOL = 1e-6  # the same device and operations, one tick later
+SERVE_TCP_CAPACITY = 64
+SERVE_TCP_CLIENTS = 8
+SERVE_TCP_RATES = (48000, 44100, 16000)
+SERVE_TCP_SECONDS = 3.0
+SERVE_TCP_STARTUP_S = 240  # the server process's imports, model load and first tick
+SERVE_TCP_DRAIN_S = 60
+SERVE_TCP_IDLE_TICKS = 50
+SERVE_TCP_MIN_RETURN = 0.9  # a client pulls until this share of its audio is back
+SERVE_WS_CAPACITY = 8
+SERVE_ROW0_CAPACITY = 8  # serve_pipeline's case with only row 0 live
 
 
 def log(phase, t0, **fields):
@@ -284,6 +338,29 @@ def max_abs_diffs(got, want):
         float((g - w).abs().max()) for g, w in zip(states, want_states)]
 
 
+def path_batches():
+    """The batches other than KERNEL_BATCHES at which a phase launches the
+    kernel (the golden runs and the serving phases)."""
+    from beatrice_vst_tpu_torch import golden
+
+    return sorted({golden.CAPACITY, golden.MORPH_CAPACITY, golden.SERVE_CAPACITY,
+                   SERVE_ROW0_CAPACITY, SERVE_WS_CAPACITY, SERVE_TCP_CAPACITY}
+                  - set(KERNEL_BATCHES))
+
+
+def checked_diffs(args, want, dtype_name, b):
+    """max |d| of the form's wrapper against the plain version's `want` on
+    `args`; raises beyond the form's tolerance."""
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    diffs = max_abs_diffs(FU.fused_upsample(*args), want)
+    tol = KERNEL_TOL[dtype_name]
+    if not np.isfinite(max(diffs)) or max(diffs) > tol:
+        raise AssertionError(f"fused_upsampler {dtype_name} vs plain at B={b}: "
+                             f"max|d| {diffs} > {tol}")
+    return diffs
+
+
 def kernel_phase(device, dtype_name):
     """One form of the kernel against its plain version at B in
     KERNEL_BATCHES: max |d| of audio and the 5 carries, device ms with L2
@@ -308,11 +385,8 @@ def kernel_phase(device, dtype_name):
     for b in KERNEL_BATCHES:
         args = upsampler_inputs(b, 0, device, dtype)
         want = FU.fused_upsample_reference(*args)
-        diffs = max_abs_diffs(FU.fused_upsample(*args), want)
+        diffs = checked_diffs(args, want, dtype_name, b)
         err = max(diffs)
-        if not np.isfinite(err) or err > tol:
-            raise AssertionError(f"fused_upsampler {dtype_name} vs plain at B={b}: "
-                                 f"max|d| {diffs} > {tol}")
 
         def kernel():
             FU.fused_upsample(*args)
@@ -354,6 +428,12 @@ def kernel_phase(device, dtype_name):
                        parent_cold_l2_ms=float(np.mean([r[1] for r in runs])))
         by_batch.append(row)
     del flush
+    # the other batches the phases launch the form at, partial tiles of 16
+    # streams among them: checked, not timed
+    at_path = {}
+    for b in path_batches():
+        args = upsampler_inputs(b, 0, device, dtype)
+        at_path[b] = checked_diffs(args, FU.fused_upsample_reference(*args), dtype_name, b)
     at = next(r for r in by_batch if r["batch"] == CAPACITY)
     entry = {
         "name": KERNEL_NAME[dtype_name],
@@ -382,7 +462,8 @@ def kernel_phase(device, dtype_name):
         "parent_cold_l2_ms": at["parent_cold_l2_ms"],
     }
     log("kernel", t0, dtype=dtype_name, tol=tol, occupancy=occupancy, reps=KERNEL_REPS,
-        flush_mib=FLUSH_BYTES / 2**20, by_batch=by_batch)
+        flush_mib=FLUSH_BYTES / 2**20, by_batch=by_batch,
+        path_batches_max_abs_diff=at_path)
     return entry
 
 
@@ -1000,6 +1081,375 @@ def morph_offline_phase(device, card):
         tol=golden.F32_ATOL, nvidia_smi=card)
 
 
+def serving_health(label, metrics, running=None):
+    """The checks after every serving phase: no recovery, no last_error
+    and, where there is a scheduler thread, that it is still alive."""
+    if metrics.get("recoveries", 0) or "last_error" in metrics:
+        raise AssertionError(f"{label}: recovered from a failure: "
+                             f"{metrics.get('recoveries')}, {metrics.get('last_error')}")
+    if running is False:
+        raise AssertionError(f"{label}: the scheduler thread died")
+
+
+def serve_golden_phase(device, card):
+    """The serving scenario through the port's ModelHost, ticked by hand,
+    against the JAX ModelHost's run in tests/data/torch_serve_golden.npz.
+    Returns the f32 form's launches and the run."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.runtime import ModelHost
+
+    t0 = time.perf_counter()
+    ref = golden.load(SERVE_GOLDEN)
+    seen = {}
+    reset_launch_counts()
+    got = golden.run_serve(ModelHost, MODEL_DIR, device=device,
+                           inspect=lambda host: seen.update(host.metrics()))
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "float32": golden.SERVE_TICKS}
+    if counts != want:
+        raise AssertionError(f"serve_golden: kernel launches {counts}, expected {want}")
+    serving_health("serve_golden", seen)
+    devs = {}
+    for i in range(len(golden._serve_sessions())):
+        if not np.array_equal(got[f"s{i}_len"], ref[f"s{i}_len"]):
+            raise AssertionError(f"serve_golden: session {i} pulled {got[f's{i}_len']}, "
+                                 f"the golden run {ref[f's{i}_len']}")
+        devs[f"s{i}"] = golden.deviation(got[f"s{i}"], ref[f"s{i}"])
+        if not devs[f"s{i}"]["max"] <= golden.F32_ATOL or np.abs(got[f"s{i}"]).max() <= 1e-3:
+            raise AssertionError(f"serve_golden: session {i} {devs[f's{i}']} (tol "
+                                 f"{golden.F32_ATOL}) or silent")
+    log("serve_golden", t0, model="klatt8", capacity=golden.SERVE_CAPACITY,
+        ticks=golden.SERVE_TICKS, launches=counts, vs_golden=devs, tol=golden.F32_ATOL,
+        serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_enqueue_p50_ms=seen["tick_p50_ms"],
+        nvidia_smi=card)
+    return counts["float32"], got
+
+
+def serve_pipeline_phase(device, card, plain):
+    """The serving scenario with pipeline=True against serve_golden's run
+    one tick later, then pipeline mode with only row 0 live at capacity 8.
+    Returns the f32 form's launches."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+    from beatrice_vst_tpu_torch.runtime import (EngineConfig, ModelHost, StreamEngine,
+                                                StreamingServer)
+
+    t0 = time.perf_counter()
+    seen = {}
+    reset_launch_counts()
+    piped = golden.run_serve(ModelHost, MODEL_DIR, device=device, pipeline=True,
+                             inspect=lambda host: seen.update(host.metrics()))
+    serving_health("serve_pipeline", seen)
+    diff = 0.0
+    for i in range(len(golden._serve_sessions())):
+        a, b = golden.serve_blocks(plain, i), golden.serve_blocks(piped, i)
+        if len(b) != len(a) or len(b[0]):
+            raise AssertionError(f"serve_pipeline: session {i}: {len(b)} pulls, the first "
+                                 f"{len(b[0])} samples long")
+        for k in range(len(a) - 1):
+            if a[k].shape != b[k + 1].shape:
+                raise AssertionError(f"serve_pipeline: session {i} tick {k}: shapes differ")
+            diff = max(diff, float(np.abs(a[k] - b[k + 1]).max(initial=0.0)))
+    if not diff <= PIPELINE_TOL:
+        raise AssertionError(f"serve_pipeline: max|d| {diff} against plain one tick later")
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    engine = StreamEngine(EngineConfig(capacity=SERVE_ROW0_CAPACITY, model=cfg), params, bank,
+                          device=device)
+    srv = StreamingServer(engine, realtime=False, pipeline=True)
+    s0 = srv.open_session(48000.0)
+    srv.open_session(48000.0).close()
+    s0.push(golden.serve_signal(48000, 0)[:480 * 6])
+    got = []
+    for _ in range(6):
+        srv.tick_once()
+        got.append(s0.pull(480))
+    srv.flush_pipeline()
+    got.append(s0.pull(480))
+    y = np.concatenate(got)
+    if len(y) != 480 * 6 or not np.isfinite(y).all() or np.abs(y).max() <= 1e-3:
+        raise AssertionError(f"serve_pipeline, row 0 live of 8: {len(y)} samples, "
+                             "not finite or silent")
+    serving_health("serve_pipeline, row 0 live", srv.metrics())
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "float32": golden.SERVE_TICKS + 6}
+    if counts != want:
+        raise AssertionError(f"serve_pipeline: kernel launches {counts}, expected {want}")
+    log("serve_pipeline", t0, model="klatt8", ticks=golden.SERVE_TICKS + 6, launches=counts,
+        max_abs_diff_vs_plain_one_tick_later=diff, tol=PIPELINE_TOL,
+        serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_enqueue_p50_ms=seen["tick_p50_ms"],
+        nvidia_smi=card)
+    return counts["float32"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tcp_client(i, port, out):
+    """Client i of serve_tcp: connect at its rate, set a voice and a pitch
+    shift (client 0: a two-voice morph through the morph pad), push 3 s in
+    10 ms blocks at real-time pace while a reader thread takes the audio
+    that comes back, until SERVE_TCP_MIN_RETURN of its duration is back.
+    Leaves the open client in out[i]."""
+    import socket
+    import threading
+    from beatrice_vst_tpu_torch.runtime.netserver import MSG_AUDIO, VCClient, recv_frame
+
+    rate = SERVE_TCP_RATES[i % len(SERVE_TCP_RATES)]
+    c = VCClient(("127.0.0.1", port), sample_rate=float(rate), timeout=60.0)
+    out[i] = {"client": c, "rate": rate}
+    edits = [("voice", i % 8), ("pitch_shift", float(i % 5 - 2))]
+    if i == 0:
+        edits = [("voice", 8), ("pitch_shift", 1.0), ("morph_marker_count", 2.0),
+                 ("morph_marker_0_voice", 1.0), ("morph_marker_1_voice", 5.0),
+                 ("morph_cursor_x", 0.35)]
+    for name, value in edits:
+        reply = c.set_parameter(name, value)
+        if not reply.get("ok"):
+            raise AssertionError(f"serve_tcp client {i}: {name} = {value} refused: {reply}")
+    rng = np.random.default_rng(100 + i)
+    n = np.arange(int(SERVE_TCP_SECONDS * rate)) / rate
+    f0 = 90.0 + 25.0 * i
+    x = (0.3 * np.sin(2 * np.pi * (f0 * n + 40.0 * n * n))
+         + 0.02 * rng.standard_normal(n.size)).astype(np.float32)
+    block = rate // 100
+    # the reader has its own socket object (a dup of the connection), so
+    # its short waits for a frame never shorten the pusher's send timeout
+    reader, got, first, stop = c.sock.dup(), [c.pull(0, timeout=0)], [], threading.Event()
+    start = time.monotonic()
+
+    def read():
+        while not stop.is_set():
+            reader.settimeout(0.05)
+            try:
+                head = reader.recv(1)
+            except socket.timeout:
+                continue
+            if not head:
+                return
+            reader.settimeout(60.0)
+            kind, payload = recv_frame(reader, head)
+            if kind == MSG_AUDIO:
+                got.append(np.frombuffer(payload, np.float32))
+                if not first:
+                    first.append(time.monotonic() - start)
+
+    th = threading.Thread(target=read)
+    th.start()
+    late = 0.0
+    try:
+        for k in range(len(x) // block):
+            c.push(x[k * block:(k + 1) * block])
+            wait = start + (k + 1) * 0.01 - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+            else:
+                late = max(late, -wait)
+        pushed_s = time.monotonic() - start
+        deadline = time.monotonic() + SERVE_TCP_DRAIN_S
+        while sum(map(len, got)) < SERVE_TCP_MIN_RETURN * len(x) and time.monotonic() < deadline:
+            time.sleep(0.02)
+    finally:
+        stop.set()
+        th.join(timeout=10)
+        reader.close()
+    y = np.concatenate(got) if got else np.zeros(0, np.float32)
+    out[i].update(pushed=len(x), returned=len(y), first_audio_s=first[0] if first else None,
+                  push_seconds=pushed_s, most_late_push_s=late,
+                  finite=bool(np.isfinite(y).all()), peak=float(np.abs(y).max(initial=0.0)),
+                  seconds=time.monotonic() - start)
+
+
+def serve_tcp_phase(device, card, dtype):
+    """The TCP server through its CLI entry point in a subprocess, with
+    SERVE_TCP_CLIENTS clients on their own threads (tcp_client)."""
+    import signal
+    import subprocess
+    import threading
+
+    from beatrice_vst_tpu_torch.runtime.netserver import VCClient
+
+    t0 = time.perf_counter()
+    port = free_port()
+    cmd = [sys.executable, "-m", "beatrice_vst_tpu_torch.cli", "serve", "--model", MODEL_DIR,
+           "--capacity", str(SERVE_TCP_CAPACITY), "--port", str(port), "--device", device.type]
+    if dtype:
+        cmd += ["--dtype", dtype]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    lines = {"out": [], "err": []}
+    readers = [threading.Thread(target=lambda f, k: lines[k].extend(f), args=(f, k), daemon=True)
+               for f, k in ((proc.stdout, "out"), (proc.stderr, "err"))]
+    for r in readers:
+        r.start()
+    clients, threads = {}, []
+    try:
+        deadline = SERVE_TCP_STARTUP_S
+        while not any("serving" in ln for ln in lines["out"]):
+            if proc.poll() is not None or time.perf_counter() - t0 > deadline:
+                raise AssertionError(f"serve_tcp {dtype}: the server did not start (rc "
+                                     f"{proc.poll()}): {''.join(lines['err'])[-3000:]}")
+            time.sleep(0.05)
+        startup_s = time.perf_counter() - t0
+        # the server idle (one probe session, no audio) until it has
+        # ticked SERVE_TCP_IDLE_TICKS times: its tick span without clients
+        # (the first ticks of a process are its slowest), and the tick
+        # count the clients' window starts from
+        probe = VCClient(("127.0.0.1", port), timeout=60.0)
+        idle = probe.metrics()
+        while idle["ticks"] < SERVE_TCP_IDLE_TICKS and time.perf_counter() - t0 < deadline:
+            time.sleep(0.1)
+            idle = probe.metrics()
+        probe.close()
+        t_clients = time.monotonic()
+        failures = []
+
+        def run(i):
+            try:
+                tcp_client(i, port, clients)
+            except Exception as e:  # noqa: BLE001 -- reported and raised below
+                failures.append(f"client {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(SERVE_TCP_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_TCP_SECONDS + SERVE_TCP_DRAIN_S + 60)
+        if failures or any(th.is_alive() for th in threads):
+            raise AssertionError(f"serve_tcp {dtype}: {failures or 'a client hung'}")
+        metrics = clients[0]["client"].metrics()
+        window_s = time.monotonic() - t_clients
+    finally:
+        for th in threads:
+            th.join(timeout=5)
+        for rec in clients.values():
+            rec["client"].close()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed after 60 s"
+        for r in readers:
+            r.join(timeout=10)
+    stderr = "".join(lines["err"])
+    form = dtype or "float32"
+    other = "float32" if dtype else "bfloat16"
+    launches = metrics["upsampler_kernel_launches"]
+    report = {i: {k: v for k, v in rec.items() if k != "client"} for i, rec in clients.items()}
+    bad = [i for i, r in report.items()
+           if not r["returned"] or not r["finite"] or r["peak"] <= 1e-3]
+    if len(report) != SERVE_TCP_CLIENTS or bad:
+        raise AssertionError(f"serve_tcp {dtype}: clients {bad} got no audio, silent or "
+                             f"non-finite audio: {report}")
+    if "Traceback" in stderr or rc != 0:
+        raise AssertionError(f"serve_tcp {dtype}: server rc {rc}, stderr {stderr[-3000:]}")
+    serving_health(f"serve_tcp {dtype}", metrics)
+    if not metrics["ticks"] or not 0 <= launches[form] - metrics["ticks"] <= 1 or launches[other]:
+        raise AssertionError(f"serve_tcp {dtype}: kernel launches {launches} for "
+                             f"{metrics['ticks']} ticks")
+    log("serve_tcp", t0, model="klatt8", dtype=form, capacity=SERVE_TCP_CAPACITY,
+        clients=SERVE_TCP_CLIENTS, audio_seconds_per_client=SERVE_TCP_SECONDS,
+        server_startup_s=startup_s, ticks=metrics["ticks"], kernel_launches=launches,
+        serve_tick_p50_ms=metrics["serve_tick_p50_ms"],
+        serve_tick_p90_ms=metrics["serve_tick_p90_ms"],
+        serve_ticks_per_s=metrics.get("serve_ticks_per_s"),
+        idle_serve_tick_p50_ms=idle["serve_tick_p50_ms"], idle_ticks=idle["ticks"],
+        ticks_per_s_with_clients=(metrics["ticks"] - idle["ticks"]) / window_s,
+        engine_enqueue_p50_ms=metrics["tick_p50_ms"], engine_underruns=metrics["underruns"],
+        session_underruns=metrics["session_underruns"],
+        session_dropped_in=metrics["session_dropped_in"],
+        session_dropped_out=metrics["session_dropped_out"], clients_report=report,
+        server_rc=rc, nvidia_smi=card)
+
+
+def control_rows(engine, idx, after_ticks):
+    """Stream idx's control values on the engine, once it has ticked
+    `after_ticks` more times (each tick flushes the staged edits first)."""
+    start = engine.metrics.ticks
+    deadline = time.monotonic() + 60
+    while engine.metrics.ticks < start + after_ticks:
+        if time.monotonic() > deadline:
+            raise AssertionError("serve_ws: the engine stopped ticking")
+        time.sleep(0.01)
+    c = engine.state["controls"]
+    return {f: c[f][idx].item() for f in ("target_speaker", "pitch_shift", "formant_index",
+                                          "active")}
+
+
+def serve_ws_phase(device, card):
+    """An in-process WebSocket server over a realtime ModelHost with one
+    client: a round trip, a model swap with its controls replayed, audio
+    after the swap.  Returns the f32 form's launches."""
+    import threading
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.runtime import ModelHost
+    from beatrice_vst_tpu_torch.runtime.wsserver import WSClient, WSServer
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    host = ModelHost(capacity=SERVE_WS_CAPACITY, realtime=True, device=device)
+    if host.load_model(MODEL_DIR) != 0:
+        raise AssertionError("serve_ws: klatt8 did not load")
+    srv = WSServer(("127.0.0.1", 0), host)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    audio = golden.serve_signal(48000, 1)
+    try:
+        c = WSClient(srv.server_address, sample_rate=48000.0)
+        for name, value in (("voice", 3), ("pitch_shift", 2.0), ("formant_shift", 0.5)):
+            if not c.set_parameter(name, value).get("ok"):
+                raise AssertionError(f"serve_ws: {name} refused")
+        idx = next(iter(host.sessions.values())).stream.idx
+        c.push(audio)
+        before_out = c.pull(len(audio) - 960, timeout=60.0)
+        old = host.engine
+        before = control_rows(old, idx, 2)
+        reply = c.set_parameter("model", SWAP_MODEL)
+        new = host.engine
+        if not reply.get("ok") or new is old:
+            raise AssertionError(f"serve_ws: the swap failed: {reply}")
+        idx_new = next(iter(host.sessions.values())).stream.idx
+        after = control_rows(new, idx_new, 3)
+        if after != before:
+            raise AssertionError(f"serve_ws: controls before the swap {before}, after {after}")
+        c.push(audio)
+        after_out = c.pull(len(audio) - 960, timeout=60.0)
+        metrics = c.metrics()
+        running = host.server.running
+        c.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        host.stop()
+    for label, y in (("before", before_out), ("after", after_out)):
+        if len(y) < len(audio) - 960 or not np.isfinite(y).all() or np.abs(y).max() <= 1e-3:
+            raise AssertionError(f"serve_ws: audio {label} the swap: {len(y)} samples, "
+                                 "not finite or silent")
+    serving_health("serve_ws", metrics, running)
+    for eng in (old, new):
+        serving_health("serve_ws", eng.metrics_snapshot())
+    counts = launch_counts()
+    ticks = old.metrics.ticks + new.metrics.ticks
+    want = {**dict.fromkeys(counts, 0), "float32": ticks}
+    if counts != want or not old.metrics.ticks or not new.metrics.ticks:
+        raise AssertionError(f"serve_ws: kernel launches {counts}, engine ticks "
+                             f"{old.metrics.ticks} + {new.metrics.ticks}")
+    log("serve_ws", t0, models=["klatt8", "klatt8_r6"], capacity=SERVE_WS_CAPACITY,
+        ticks_before_swap=old.metrics.ticks, ticks_after_swap=new.metrics.ticks,
+        launches=counts, controls=before, serve_tick_p50_ms=metrics["serve_tick_p50_ms"],
+        nvidia_smi=card)
+    return counts["float32"]
+
+
 def profile_phase(device, out_dir, config, ticks=20):
     """Where the engine's tick time goes in one configuration: `ticks`
     ticks at capacity 256 under torch.profiler after warm-up.  Prints
@@ -1094,6 +1544,11 @@ def main() -> int:
     by_path["float32"]["parity_stream"] = parity_phase(device)
     offline_phase(device)
     by_path["float32"]["versions"] = versions_phase(device)
+    by_path["float32"]["serve_golden"], plain_serve = serve_golden_phase(device, card)
+    by_path["float32"]["serve_pipeline"] = serve_pipeline_phase(device, card, plain_serve)
+    for dtype in (None, "bfloat16"):
+        serve_tcp_phase(device, card, dtype)
+    by_path["float32"]["serve_ws"] = serve_ws_phase(device, card)
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())
         entry["launches_by_path"] = by_path[form]

@@ -9,8 +9,12 @@ without host synchronisation; offline conversion against the golden file
 of the JAX package's, and a tick of 25 frames (the stage loop) against 25
 real-time ticks (the kernel) for 2.0.0-rc.0 and 2.0.0-alpha.2; with morph
 streams, a warm tick without host synchronisation, tie order on the card,
-and the morph golden file.  They skip where torch.cuda.is_available() is
-false.
+and the morph golden file; serving: pipeline mode equal to plain mode one
+tick later over 50 ticks (bitwise), `reset_context` from a client thread
+while the scheduler ticks leaving the other streams bitwise unchanged,
+`ModelHost()` on the card by default, and a warm serving tick whose only
+wait is on its output copy's event.  They skip where
+torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
 
@@ -439,3 +443,136 @@ def test_chunk_tick_matches_streaming_on_the_card(cuda_device, version):
                         device=cuda_device, timer=timer)
     assert report.passed, str(report)
     assert counts == {"chunk": 0, "stream": 25}
+
+
+# ---- serving on the card ----
+
+
+def _server(device, cap=4, pipeline=False):
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+    from beatrice_vst_tpu_torch.runtime import EngineConfig, StreamEngine, StreamingServer
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    engine = StreamEngine(EngineConfig(capacity=cap, model=cfg), params, bank, device=device)
+    return StreamingServer(engine, realtime=False, pipeline=pipeline)
+
+
+def _serve_ticks(srv, ticks, rates=(48000, 44100, 16000)):
+    """Sessions at `rates`, each fed golden.serve_signal (one tick ahead)
+    and pulled after every tick: each session's pulls."""
+    sessions = [srv.open_session(float(r)) for r in rates]
+    for i, s in enumerate(sessions):
+        srv.engine.set_control(s.idx, "target_speaker", np.int32(2 * i + 1))
+    signals = [np.tile(golden.serve_signal(r, i), 2) for i, r in enumerate(rates)]
+    pulls = [[] for _ in rates]
+    for k in range(ticks):
+        for i, (s, r) in enumerate(zip(sessions, rates)):
+            if k == 0:
+                s.push(signals[i][:r // 100])
+            s.push(signals[i][(k + 1) * r // 100:(k + 2) * r // 100])
+        srv.tick_once()
+        for i, (s, r) in enumerate(zip(sessions, rates)):
+            pulls[i].append(s.pull(r // 100))
+    return pulls
+
+
+@pytest.mark.cuda
+def test_serving_pipeline_equals_plain_one_tick_late(cuda_device):
+    """50 ticks of varying input at three client rates: pipeline mode
+    delivers plain mode's audio one tick later, bitwise."""
+    plain = _serve_ticks(_server(cuda_device), 50)
+    piped = _serve_ticks(_server(cuda_device, pipeline=True), 50)
+    for a, b in zip(plain, piped):
+        assert len(b[0]) == 0
+        for k in range(49):
+            assert np.array_equal(b[k + 1], a[k]), k
+    assert max(float(np.abs(np.concatenate(a)).max()) for a in plain) > 1e-3
+
+
+@pytest.mark.cuda
+def test_reset_context_from_another_thread_leaves_the_other_streams_alone(cuda_device):
+    """A client thread resets stream 0's context again and again while the
+    scheduler thread ticks: the other streams' outputs equal a run without
+    it, bitwise (the input is queued before the scheduler starts, so each
+    tick reads the same samples whatever the timing)."""
+    import threading
+    import time
+
+    from beatrice_vst_tpu_torch.runtime.handle import StreamHandle
+
+    ticks = 100
+
+    def run(resets):
+        srv = _server(cuda_device)
+        sessions = [srv.open_session(48000.0) for _ in range(3)]
+        for i, s in enumerate(sessions):
+            srv.engine.set_control(s.idx, "target_speaker", np.int32(i + 2))
+            s.push(golden.serve_signal(48000, i)[:480 * ticks])
+        stop = threading.Event()
+
+        def resetter():
+            handle = StreamHandle(srv.engine, sessions[0].idx)
+            while not stop.is_set():
+                handle.reset_context()
+                time.sleep(0.002)
+
+        t = threading.Thread(target=resetter)
+        if resets:
+            t.start()
+        srv.start()
+        deadline = time.monotonic() + 120
+        while srv.engine.metrics.ticks < ticks + 5 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stop.set()
+        srv.stop()
+        if resets:
+            t.join(timeout=30)
+        assert srv.engine.metrics.ticks >= ticks and not srv.engine.counters.get("recoveries")
+        return [s.ring_out.read(480 * ticks) for s in sessions]
+
+    calm, busy = run(False), run(True)
+    for a, b in zip(calm[1:], busy[1:]):
+        assert len(a) == len(b) == 480 * ticks and np.array_equal(a, b)
+    assert not np.array_equal(calm[0], busy[0])
+
+
+@pytest.mark.cuda
+def test_model_host_runs_on_the_card_by_default(cuda_device):
+    from beatrice_vst_tpu_torch.runtime import ModelHost
+
+    host = ModelHost(capacity=2, realtime=False)
+    assert host.device.type == "cuda"
+    assert host.load_model(MODEL_DIR) == 0
+    s = host.open_session(48000.0)
+    assert host.engine.state["controls"]["active"].device.type == "cuda"
+    before = FU.launches
+    s.push(golden.serve_signal(48000, 0)[:4800])
+    for _ in range(5):
+        host.tick_once()
+    assert FU.launches - before == 5
+    out = s.pull(4800)
+    assert len(out) == 2400 and np.isfinite(out).all()
+    host.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_serving_tick_syncs_only_on_the_output_copy(cuda_device, pipeline):
+    """A warm serving tick (no control edit staged) makes no host
+    synchronisation that torch's sync debug mode sees: its input goes to
+    the card from a pinned buffer without blocking, and the host waits for
+    the card only on the event behind the output's copy."""
+    srv = _server(cuda_device, pipeline=pipeline)
+    pulls = _serve_ticks(srv, 3)
+    s = srv.sessions[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            s.push(np.zeros(480, np.float32))
+            srv.tick_once()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = s.pull(480 * 3)
+    assert len(out) == 480 * 3 and np.isfinite(out).all()
+    assert sum(len(p) for p in pulls[0]) == 480 * (2 if pipeline else 3)
