@@ -16,8 +16,12 @@ ends, the parameter surface of `params/`, the host-edge library of
 `native/`, `cli.py`).  The vocoder's upsampler head runs at T = 1 as one
 hand-written CUDA kernel in an f32 and a bf16 form
 (`models/fused_upsampler.py`, `csrc/fused_upsampler.cu`,
-`csrc/fused_upsampler_bf16.cu`).  Sequence-parallel offline conversion,
-multi-GPU and training are not ported yet.
+`csrc/fused_upsampler_bf16.cu`); training (`training/`: distillation,
+feature distillation, the GAN step with its critics, the WAV-pair data
+pipeline, checkpoints, `cli train`), which runs the plain head under
+autograd; and sequence-parallel offline conversion (`runtime/seqpar.py`,
+`cli convert --seq-parallel`), its segments one batch on one card.
+Multi-GPU (`parallel/`) is not ported yet.
 
 Importing the package builds nothing and touches no GPU: kernels are
 compiled with `nvcc` at their first launch, and the host-edge library with

@@ -4,15 +4,23 @@
     python -m beatrice_vst_tpu_torch.cli info --model DIR
     python -m beatrice_vst_tpu_torch.cli convert IN.wav OUT.wav --model DIR
         [--voice N | --morph w0,w1,...] [--pitch-shift ST] [--formant-shift ST]
-        [--intonation X] [--pitch-correction X] [--vq-neighbors N] ...
+        [--intonation X] [--pitch-correction X] [--vq-neighbors N]
+        [--seq-parallel N] ...
+    python -m beatrice_vst_tpu_torch.cli train --model DIR [--teacher DIR | --data DIR]
+        [--steps N] [--batch B] [--frames T] [--lr LR] [--gan] [--ckpt-dir D
+        --save-every N --resume] [--output weights.npz]
     python -m beatrice_vst_tpu_torch.cli parity [--version V] [--frames T]
     python -m beatrice_vst_tpu_torch.cli serve --model DIR [--port P] [--capacity C]
         [--dtype bfloat16] [--ws | --grpc]
 
-The same parameters as the JAX CLI, over the port's offline converter, the
-parity harness and the streaming server.  `convert`, `parity` and `serve`
-run on the card unless `--device cpu` is given.  `train` and
-`convert --seq-parallel` are not ported yet.
+The same verbs and parameters as the JAX CLI, over the port's offline
+converter (sequential or sequence-parallel), the trainer, the parity
+harness and the streaming server.  `convert`, `train`, `parity` and
+`serve` run on the card unless `--device cpu` is given.  `train` writes a
+`weights.npz` that the JAX package's `load_model_dir` reads; without
+`--teacher` or `--data` its teacher is a random model from the port's
+`chain.init` seeded with seed + 1 (a CPU generator, so its values are not
+the JAX CLI's).
 """
 
 from __future__ import annotations
@@ -77,16 +85,61 @@ def cmd_convert(args):
         morph_weights=morph,
         soft_pitch=args.soft_pitch,
     )
+    kw = dict(out_sample_rate=args.output_rate or sr,
+              compute_dtype=getattr(torch, args.dtype) if args.dtype else None,
+              device=args.device)
     t0 = time.perf_counter()
-    out = convert_utterance(params, model_cfg, bank, audio, sr, settings,
-                            out_sample_rate=args.output_rate or sr,
-                            compute_dtype=getattr(torch, args.dtype) if args.dtype else None,
-                            device=args.device)
+    if args.seq_parallel:
+        from .runtime.seqpar import convert_utterance_sp
+
+        out = convert_utterance_sp(params, model_cfg, bank, audio, sr, settings,
+                                   n_segments=args.seq_parallel, **kw)
+    else:
+        out = convert_utterance(params, model_cfg, bank, audio, sr, settings, **kw)
     dt = time.perf_counter() - t0
     write_wav(args.output, out, args.output_rate or sr)
     dur = len(audio) / sr
     print(f"converted {dur:.2f}s of audio in {dt:.2f}s ({dur / dt:.1f}x real-time) "
           f"-> {args.output}")
+
+
+def cmd_train(args):
+    import torch
+
+    from .models import chain as chain_mod
+    from .models.io import load_model_dir, save_weights
+    from .training import make_teacher_batcher, train, train_gan
+
+    _, model_cfg, params, bank = load_model_dir(args.model)
+    if args.data:
+        from .training import PairDataset, make_pair_batcher
+
+        ds = PairDataset(args.data)
+        print(f"dataset: {len(ds.items)} utterances, {ds.n_frames_total()} frames"
+              f"{' (identity mode)' if ds.identity_mode else ''}")
+        batches = make_pair_batcher(ds, model_cfg, bank, batch=args.batch, frames=args.frames,
+                                    seed=args.seed, device=args.device)
+    else:
+        if args.teacher:
+            _, teacher_cfg, teacher_params, teacher_bank = load_model_dir(args.teacher)
+            if teacher_cfg != model_cfg:
+                raise SystemExit("teacher/student configs differ")
+        else:
+            teacher_params = chain_mod.init(torch.Generator().manual_seed(args.seed + 1),
+                                            model_cfg, "cpu")
+            teacher_bank = bank
+        batches = make_teacher_batcher(model_cfg, teacher_params, teacher_bank,
+                                       batch=args.batch, frames=args.frames, seed=args.seed,
+                                       device=args.device)
+    common = dict(steps=args.steps, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                  save_every=args.save_every, resume=args.resume, device=args.device)
+    if args.gan:
+        params, history = train_gan(params, model_cfg, batches, seed=args.seed, **common)
+    else:
+        params, history = train(params, model_cfg, batches, **common)
+    out = args.output or f"{args.model}/weights.npz"
+    save_weights(out, params)
+    print(f"trained {args.steps} steps; final loss {history[-1][1]:.4f}; saved {out}")
 
 
 def cmd_parity(args):
@@ -150,7 +203,31 @@ def main(argv=None):
                          "the argmax")
     pc.add_argument("--output-rate", type=int, default=None)
     pc.add_argument("--dtype", default=None, choices=[None, "bfloat16"], nargs="?")
+    pc.add_argument("--seq-parallel", type=int, default=0, metavar="N",
+                    help="cut the utterance into N segments run as one batch "
+                         "(runtime/seqpar.py)")
     pc.set_defaults(fn=cmd_convert)
+
+    pt = sub.add_parser("train", help="distillation training loop")
+    pt.add_argument("--model", required=True, help="student model dir")
+    pt.add_argument("--teacher", default=None, help="teacher model dir")
+    pt.add_argument("--steps", type=int, default=100)
+    pt.add_argument("--batch", type=int, default=8)
+    pt.add_argument("--frames", type=int, default=32)
+    pt.add_argument("--lr", type=float, default=2e-4)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--output", default=None)
+    pt.add_argument("--data", default=None,
+                    help="WAV-pair dataset dir (inputs/ [+ targets/]); identity mode when "
+                         "targets/ is absent")
+    pt.add_argument("--gan", action="store_true",
+                    help="adversarial training (MPD+MRD+PCD critics, feature matching)")
+    pt.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (params + optimizer state)")
+    pt.add_argument("--save-every", type=int, default=500)
+    pt.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir")
+    pt.set_defaults(fn=cmd_train)
 
     ps = sub.add_parser("serve", help="streaming voice-conversion server "
                                       "(TCP, WebSocket or gRPC)")
@@ -169,7 +246,7 @@ def main(argv=None):
     pp.add_argument("--frames", type=int, default=25)
     pp.set_defaults(fn=cmd_parity)
 
-    for sp in (pc, ps, pp):
+    for sp in (pc, pt, ps, pp):
         sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the engine runs (default: the card)")
 

@@ -315,3 +315,186 @@ def run_serve(host_cls, model_dir, inspect=None, **host_kw) -> dict:
 def serve_blocks(run: dict, i: int) -> list:
     """Session i's pulls of a `run_serve` result, one array per tick."""
     return np.split(run[f"s{i}"], np.cumsum(run[f"s{i}_len"])[:-1])
+
+
+# ---- training and sequence-parallel conversion ----
+#
+# The train file `tests/data/torch_train_golden.npz` holds TRAIN_BATCH
+# (`train_batch`: "audio16", "target24", "f0_bin") and the JAX package's
+# numbers on the CPU for one step of each trainer on klatt8 with the cond
+# of ConversionSettings(target_speaker=TRAIN_SPEAKER), f32:
+#   "distill/<metric>"       distillation_loss's total ("loss") and terms,
+#                            f0_weight 1, periodicity_weight TRAIN_PERIO;
+#   "distill/grad/<leaf>"    each parameter's gradient L2 norm;
+#   "distill/loss2"          the loss of a second step, after one AdamW
+#                            update (make_optimizer(TRAIN_LR));
+#   "gan/<metric>"           gan_train_step's "d_loss", "g_loss" and terms,
+#                            on the critics of `disc_params(TRAIN_SEED)`;
+#   "gan/d_grad/<leaf>"      each critic parameter's gradient norm (the D
+#                            step), "gan/g_grad/<leaf>" each generator
+#                            parameter's (the G step, after the D update);
+#   "gan/d_loss2", "gan/g_loss2"  the second step's losses.
+# `tests/test_torch_training.py` regenerates it with the JAX package and
+# requires it to match (`PYTHONPATH=. python tests/test_torch_training.py`
+# rewrites it); chip_smoke.py's train_golden phase holds the port on the
+# card to it: losses at TRAIN_LOSS_RTOL, gradient norms at TRAIN_GRAD_RTOL.
+#
+# The seqpar file `tests/data/torch_seqpar_golden.npz` holds under "f32"
+# the JAX package's `convert_utterance_sp` on the CPU of `offline_signal`
+# (OFFLINE_RATE in and out) on klatt8 with OFFLINE_SETTINGS and
+# n_segments=SEQPAR_SEGMENTS; `tests/test_torch_seqpar.py` regenerates it
+# (`PYTHONPATH=. python tests/test_torch_seqpar.py` rewrites it) and the
+# port is held to it at F32_ATOL.
+
+TRAIN_BATCH = 2
+TRAIN_FRAMES = 16
+TRAIN_SEED = 3
+TRAIN_SPEAKER = 2
+TRAIN_LR = 2e-4
+TRAIN_PERIO = 0.5
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+SEQPAR_SEGMENTS = 4
+
+
+def train_batch(seed: int = TRAIN_SEED, batch: int = TRAIN_BATCH,
+                frames: int = TRAIN_FRAMES) -> dict:
+    """A training batch from a numpy seed: a sawtooth at a per-row F0
+    plus noise at 16 kHz ("audio16" [B, frames*160]), a noisy sine target
+    at 24 kHz ("target24" [B, frames*240]) and pitch bins ("f0_bin"
+    [B, frames] int32, 0 = unvoiced in the first and last two frames)."""
+    rng = np.random.default_rng(seed)
+    t16 = np.arange(frames * 160) / 16000.0
+    t24 = np.arange(frames * 240) / 24000.0
+    f0 = rng.uniform(90.0, 280.0, (batch, 1))
+    saw = 2.0 * ((f0 * t16) % 1.0) - 1.0
+    audio16 = 0.3 * saw + 0.05 * rng.standard_normal((batch, t16.size))
+    target24 = 0.2 * np.sin(2 * np.pi * f0 * t24) + 0.03 * rng.standard_normal((batch, t24.size))
+    midi = 69.0 + 12.0 * np.log2(f0 / 440.0)
+    f0_bin = np.repeat(np.round((midi - 33.0) * 8.0), frames, axis=1).astype(np.int32)
+    f0_bin[:, :2] = 0
+    f0_bin[:, -2:] = 0
+    return {"audio16": audio16.astype(np.float32), "target24": target24.astype(np.float32),
+            "f0_bin": f0_bin}
+
+
+def disc_params(seed: int = TRAIN_SEED) -> dict:
+    """The critics' parameters (the tree, shapes and distributions of the
+    discriminator's `init`: w ~ U(+-1/sqrt(kh*kw*Cin)), b = 0) from a
+    numpy seed, as float32 arrays, so that both packages and the card get
+    the same values without a file."""
+    from .training import discriminator as D
+
+    rng = np.random.default_rng(seed)
+
+    def critic(channels, kh, kw, c_in=1):
+        layers = []
+        for c_out, k in [(c, kh) for c in channels] + [(1, 3)]:  # the logits conv is 3 high
+            scale = 1.0 / np.sqrt(k * kw * c_in)
+            layers.append({"w": rng.uniform(-scale, scale, (k, kw, c_in, c_out))
+                           .astype(np.float32), "b": np.zeros(c_out, np.float32)})
+            c_in = c_out
+        return layers
+
+    return {"mpd": [critic(D._MPD_CHANNELS, 5, 1) for _ in D.MPD_PERIODS],
+            "mrd": [critic(D._MRD_CHANNELS, 3, 3) for _ in D.MRD_RESOLUTIONS],
+            "pcd": critic(D._PCD_CHANNELS, 5, 3, 1 + 2 * len(D.PCD_HARMONICS))}
+
+
+def train_inputs(cfg, bank, device, batch_np=None) -> dict:
+    """The port's training batch on `device`: `train_batch` (or batch_np)
+    with the raw-KV cond of ConversionSettings(target_speaker=TRAIN_SPEAKER)."""
+    import torch
+
+    from .models.io import params_from_numpy
+    from .runtime.offline import ConversionSettings, build_cond
+
+    batch_np = train_batch() if batch_np is None else batch_np
+    bank = {k: v.float() for k, v in params_from_numpy(bank, device).items()}
+    out = {k: torch.from_numpy(np.asarray(batch_np[k])).to(device)
+           for k in ("audio16", "target24", "f0_bin")}
+    out["cond"] = build_cond(None, cfg, bank, ConversionSettings(target_speaker=TRAIN_SPEAKER),
+                             out["audio16"].shape[0], raw_kv=True)
+    return out
+
+
+def run_train(cfg, params, bank, device, batch_np=None) -> dict:
+    """The port's numbers of the train golden file (the keys above but
+    "batch/*"): one distillation step and one GAN step from `params` on
+    the golden batch, and each one's second step, as Python floats."""
+    import torch
+
+    from .models.io import flatten_params
+    from .training import distill, gan
+
+    batch = train_inputs(cfg, bank, device, batch_np)
+    out = {}
+
+    def norms(prefix, tree):
+        out.update({f"{prefix}/{k}": float(torch.linalg.norm(v.grad))
+                    for k, v in flatten_params(tree).items()})
+
+    def distill_loss(p):
+        return distill.distillation_loss(p, cfg, batch["audio16"], batch["target24"],
+                                         batch["cond"], f0_bin=batch["f0_bin"],
+                                         periodicity_weight=TRAIN_PERIO)
+
+    p = distill.trainable(params, device)
+    opt = distill.make_optimizer(p, TRAIN_LR)
+    loss, aux = distill_loss(p)
+    loss.backward()
+    out["distill/loss"] = float(loss)
+    out.update({f"distill/{k}": float(v) for k, v in aux.items()})
+    norms("distill/grad", p)
+    opt.step()
+    with torch.no_grad():
+        out["distill/loss2"] = float(distill_loss(p)[0])
+
+    g = distill.trainable(params, device)
+    d = distill.trainable(disc_params(), device)
+    gen_opt, disc_opt = gan.make_gan_optimizers(g, d, TRAIN_LR)
+    with torch.no_grad():
+        fake = gan._generate(g, cfg, batch)
+    d_loss = gan.disc_loss(d, batch["target24"], fake, batch["f0_bin"])
+    gan.set_grads(d_loss, disc_opt)
+    norms("gan/d_grad", d)
+    disc_opt.step()
+    g_loss, aux = gan.gen_loss(g, d, cfg, batch)
+    gan.set_grads(g_loss, gen_opt)
+    norms("gan/g_grad", g)
+    gen_opt.step()
+    out.update({"gan/d_loss": float(d_loss), "gan/g_loss": float(g_loss)})
+    out.update({f"gan/{k}": float(v) for k, v in aux.items()})
+    metrics = gan.gan_train_step(g, d, gen_opt, disc_opt, batch, cfg=cfg)[-1]
+    out["gan/d_loss2"] = float(metrics["d_loss"])
+    out["gan/g_loss2"] = float(metrics["g_loss"])
+    return out
+
+
+# Gradient norms that f32 cannot pin to TRAIN_GRAD_RTOL, and their gates.
+# The key bias of each attention block has a zero gradient in exact
+# arithmetic (the softmax over the keys ignores a shift common to all of
+# them): its f32 norm is rounding noise, held below TRAIN_GRAD_ZERO.  The
+# final conv's bias sums the cotangent of the STFT's log-magnitudes over
+# every sample, and that cotangent is ill-conditioned at the bins near
+# zero (the JAX package's own eager and jitted runs differ by 1.2 % there,
+# on the CPU); the PCD's first bias sums over its f32 running phase, which
+# the two packages sum in different orders.  Both are held at
+# TRAIN_GRAD_LOOSE.
+TRAIN_GRAD_ZERO = 1e-6
+TRAIN_GRAD_LOOSE = 3e-2
+_ZERO_GRADS = ("attn/k/b",)
+_LOOSE_GRADS = ("wg/final/b", "pcd/0/b")
+
+
+def train_gate(key: str, got: float, want: float, loss_rtol: float = TRAIN_LOSS_RTOL):
+    """(passes, relative or absolute deviation, bound) of one number of the
+    train golden file."""
+    if "grad/" not in key:
+        dev = abs(got - want) / abs(want)
+        return dev <= loss_rtol, dev, loss_rtol
+    if key.endswith(_ZERO_GRADS):
+        return max(abs(got), abs(want)) <= TRAIN_GRAD_ZERO, abs(got), TRAIN_GRAD_ZERO
+    dev = abs(got - want) / abs(want)
+    bound = TRAIN_GRAD_LOOSE if key.endswith(_LOOSE_GRADS) else TRAIN_GRAD_RTOL
+    return dev <= bound, dev, bound

@@ -13,12 +13,15 @@ Per-stream conditioning arrives as a `cond` dict:
   average_source_pitch, intonation_intensity, pitch_shift,
   pitch_correction  [B] float; pitch_correction_type [B] int
 
-and, for 2.0.0-rc.0, one of each pair of routes:
+and, for 2.0.0-rc.0, one of each group of routes:
 
   kv_cache          {"k","v"(,"k_scale","v_scale")}: [B, n_blocks, 384, A(|1)]
                     the per-stream projected speaker KV, or
   kv_bank, kv_slot  the shared slot bank [Z, n_blocks, 384, A(|1)] and
-                    each stream's slot [B]
+                    each stream's slot [B], or
+  kv                [B, 384, 128] the raw speaker KV, projected in every
+                    call (the JAX package's training cond: the gradient
+                    reaches the K/V projections)
   codebook(, codebook_scale)  [B, 512, 128] the stream's VQ codebook, or
   codebook_bank, codebook_idx(, codebook_bank_scale)  the model's bank
                     [S, 512, 128] and each stream's speaker [B] (read
@@ -69,7 +72,7 @@ def init(gen: torch.Generator, cfg: VoiceConverterConfig, device="cuda"):
     }
 
 
-def _smooth_phone(phone, cond):
+def _smooth_phone(phone, cond, int8_query: bool = False):
     """2.0.0-rc.0's VQ k-NN smoothing by the cond's codebook route
     (`chain.py:183-203`)."""
     if "codebook_bank" not in cond:
@@ -79,7 +82,7 @@ def _smooth_phone(phone, cond):
     if phone.shape[1] == 1:
         return phone_extractor.vq_knn_smooth_shared(
             phone, cond["codebook_bank"], cond["codebook_idx"], cond["vq_num_neighbors"],
-            codebook_scale=cond.get("codebook_bank_scale"))
+            codebook_scale=cond.get("codebook_bank_scale"), int8_query=int8_query)
     idx = cond["codebook_idx"]
     scale = cond.get("codebook_bank_scale")
     return phone_extractor.vq_knn_smooth(
@@ -97,21 +100,27 @@ def init_state(cfg: VoiceConverterConfig, batch_shape=(), device="cuda"):
 
 
 def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype=None,
-          soft_pitch: bool = False):
+          soft_pitch: bool = False, vq_int8_query: bool = False, with_taps: bool = False):
     """audio16: [B, T*160] at 16 kHz -> (audio24 [B, T*240] at 24 kHz,
     state) (`chain.py:128`).  soft_pitch conditions the vocoder on the
-    expected bin over the masked pitch logits (`chain.py:207-237`)."""
+    expected bin over the masked pitch logits (`chain.py:207-237`).
+    vq_int8_query quantizes the query of the shared int8 codebook bank's
+    distances at T = 1 (`vq_knn_smooth_shared`).  with_taps also returns
+    the stage boundaries (`chain.py:242-246`), the supervision points of
+    the training losses: (audio24, state, {"phone" (after the VQ),
+    "qp_raw", "qp", "pitch_feats", "pitch_logits"})."""
     spec = cfg.spec
     phone, phone_state = phone_extractor.apply(params["phone"], cfg.phone, audio16,
                                                state["phone"], compute_dtype)
     if spec.has_vq:
-        phone = _smooth_phone(phone, cond)
+        phone = _smooth_phone(phone, cond, vq_int8_query)
     pe_out = pitch_estimator.apply(
         params["pitch"], cfg.pitch, audio16, state["pitch"], cond["min_q"],
-        cond["max_q"], compute_dtype, with_logits=soft_pitch)
+        cond["max_q"], compute_dtype, with_logits=soft_pitch or with_taps)
     qp_raw, pitch_feats, pitch_state = pe_out[:3]
+    pitch_logits = pe_out[3] if len(pe_out) > 3 else None
     if soft_pitch:
-        qp_raw = pitch_estimator.expected_bin(pe_out[3], cond["min_q"], cond["max_q"])
+        qp_raw = pitch_estimator.expected_bin(pitch_logits, cond["min_q"], cond["max_q"])
     qp = transform_pitch(
         qp_raw,
         average_source_pitch=cond["average_source_pitch"][:, None],
@@ -125,5 +134,10 @@ def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype
     audio24, wg_state = waveform_generator.apply(
         params["wg"], cfg.wg, phone, qp, pitch_feats, cond["speaker_embedding"],
         state["wg"], cond.get("kv_cache"), compute_dtype,
-        kv_bank=cond.get("kv_bank"), kv_slot=cond.get("kv_slot"), soft_pitch=soft_pitch)
-    return audio24, {"phone": phone_state, "pitch": pitch_state, "wg": wg_state}
+        kv_bank=cond.get("kv_bank"), kv_slot=cond.get("kv_slot"), soft_pitch=soft_pitch,
+        kv_embedding=cond.get("kv"))
+    new_state = {"phone": phone_state, "pitch": pitch_state, "wg": wg_state}
+    if with_taps:
+        return audio24, new_state, {"phone": phone, "qp_raw": qp_raw, "qp": qp,
+                                    "pitch_feats": pitch_feats, "pitch_logits": pitch_logits}
+    return audio24, new_state

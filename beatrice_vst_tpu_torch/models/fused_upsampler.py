@@ -328,8 +328,25 @@ def fused_upsample(up_params, final_params, h, states, src_feats):
     """Run the upsampler head for one frame (same arguments and results as
     `fused_upsample_reference`).  CPU tensors take the plain version; CUDA
     tensors launch the kernel's form of h's dtype on the current stream,
-    without synchronising, or raise."""
+    without synchronising, or raise.  The kernel has no backward (nor has
+    the JAX kernel a VJP), so under autograd with an input that requires
+    grad a CUDA call raises instead of returning outputs without a
+    gradient: the trainer runs the plain head (`upsampler_kernel=False`)."""
     return _fused_upsample(up_params, final_params, h, states, src_feats)
+
+
+def _requires_grad(*trees) -> bool:
+    """Whether any tensor in the nested lists and dicts requires grad."""
+    for node in trees:
+        if isinstance(node, torch.Tensor):
+            if node.requires_grad:
+                return True
+        elif isinstance(node, dict):
+            if _requires_grad(*node.values()):
+                return True
+        elif isinstance(node, (list, tuple)) and _requires_grad(*node):
+            return True
+    return False
 
 
 def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
@@ -342,6 +359,10 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
         return fused_upsample_reference(up_params, final_params, h, states, src_feats)
     if h.device.type != "cuda":
         raise ValueError(f"fused_upsample runs on cpu or cuda, not {h.device}")
+    if torch.is_grad_enabled() and _requires_grad(up_params, final_params, h, states,
+                                                  src_feats):
+        raise RuntimeError("the fused upsampler kernel has no backward: run the plain head "
+                           "(WaveformGeneratorConfig(upsampler_kernel=False)) under autograd")
     source = source or FORMS[h.dtype]
     launch = _launcher(source, h.dtype)
     b = h.shape[0]

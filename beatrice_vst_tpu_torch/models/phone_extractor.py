@@ -128,10 +128,10 @@ def vq_knn_smooth(phone, codebook, num_neighbors, max_neighbors: int = MAX_NEIGH
 
 
 def vq_knn_smooth_shared(phone, bank_codebooks, codebook_idx, num_neighbors,
-                         max_neighbors: int = MAX_NEIGHBORS, codebook_scale=None):
+                         max_neighbors: int = MAX_NEIGHBORS, codebook_scale=None,
+                         int8_query: bool = False):
     """Gather-free k-NN phone smoothing against the shared codebook bank
-    (`phone_extractor.py:217`, with `int8_query=False`, as the engine
-    runs it).
+    (`phone_extractor.py:217`).
 
     phone: [B, 1, C]; bank_codebooks: [S, K, C] (f32, bf16, or int8 with
     per-row codebook_scale [S, K, 1]); codebook_idx: [B] int;
@@ -141,21 +141,36 @@ def vq_knn_smooth_shared(phone, bank_codebooks, codebook_idx, num_neighbors,
     in its speaker's block, and the mean is [B, S*K] x [S*K, C] with the
     weights in its speaker's block, so the bank is read once and nothing of
     size B*K*C is made.
+
+    int8_query (an int8 bank only, `phone_extractor.py:258-276`): the
+    query is quantized per stream row to int8 and the distances are int8
+    x int8 products with exact integer sums (`layers._int8_dot`), the
+    entries' squared norms too; the scales are applied after.
     """
     s, k_entries, c = bank_codebooks.shape
     cb, query = _operands(phone, bank_codebooks)
     onehot = torch.nn.functional.one_hot(codebook_idx.to(torch.int64), s)  # [B, S]
     oh32 = onehot.float()
-    c2_all = (cb.float() * cb.float()).sum(dim=-1)  # [S, K]
     if codebook_scale is not None:
         sc = codebook_scale[..., 0]  # [S, K]
         sc_b = (oh32[:, :, None] * sc).sum(dim=1)  # [B, K], one nonzero term
-        c2_all = c2_all * (sc * sc)
-    c2 = (oh32[:, :, None] * c2_all).sum(dim=1)  # [B, K]
-    masked = (onehot.to(query.dtype)[:, :, None] * query[:, 0, None, :]).reshape(-1, s * c)
-    pc = layers.matmul_f32(masked, cb.permute(0, 2, 1).reshape(s * c, k_entries))  # [B, K]
-    if codebook_scale is not None:
-        pc = pc * sc_b
+    bank_t = bank_codebooks.permute(0, 2, 1).reshape(s * c, k_entries)
+    if int8_query and bank_codebooks.dtype == torch.int8:
+        q8, qs = layers.quantize_rows(phone[:, 0, :])
+        masked8 = (onehot[:, :, None] * q8[:, None, :].to(torch.int64)).reshape(-1, s * c)
+        pci = layers._int8_dot(masked8, bank_t)  # [B, K]
+        c2i = bank_codebooks.float().square().sum(dim=-1)  # [S, K], integer sums: exact
+        c2 = (oh32[:, :, None] * (c2i * (sc * sc))).sum(dim=1)  # [B, K]
+        pc = pci * qs * sc_b
+    else:
+        c2_all = (cb.float() * cb.float()).sum(dim=-1)  # [S, K]
+        if codebook_scale is not None:
+            c2_all = c2_all * (sc * sc)
+        c2 = (oh32[:, :, None] * c2_all).sum(dim=1)  # [B, K]
+        masked = (onehot.to(query.dtype)[:, :, None] * query[:, 0, None, :]).reshape(-1, s * c)
+        pc = layers.matmul_f32(masked, bank_t.to(cb.dtype))  # [B, K]
+        if codebook_scale is not None:
+            pc = pc * sc_b
     dist = c2 - 2.0 * pc
     n = num_neighbors.to(torch.int64)[:, None]  # [B, 1]
     weights = _nearest(dist, n, max_neighbors)

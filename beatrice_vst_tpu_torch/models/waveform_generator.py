@@ -130,6 +130,21 @@ def quantized_pitch_to_hz(q):
     return 55.0 * torch.pow(2.0, q / 96.0)
 
 
+def _steps(quantized_pitch):
+    """(per-sample phase step, per-frame phase increment) [B, T] f32."""
+    f0 = quantized_pitch_to_hz(quantized_pitch.to(torch.float32))
+    step = _TWO_PI * f0 / OUT_SAMPLE_RATE
+    return step, step * OUT_HOP_LENGTH
+
+
+def frame_increments(quantized_pitch):
+    """Per-frame source-phase increment mod 2*pi, [*, T] f32
+    (`waveform_generator.py:153`): bitwise what `_source_phases`
+    integrates, so that sequence-parallel conversion (runtime/seqpar.py)
+    sums the same values on the host."""
+    return _mod(_steps(quantized_pitch)[1], _TWO_PI)
+
+
 def _source_phases(quantized_pitch, phase0):
     """(start [B, T], step [B, T], new_phase [B]) (`waveform_generator.py:169`):
     the source phase at sample p = 1..240 of frame t is start + step * p.
@@ -140,9 +155,7 @@ def _source_phases(quantized_pitch, phase0):
     is taken in f64 and reduced once (one cumsum for any T, at rounding
     level of the scan's result; at T = 1 it is the increment itself).
     """
-    f0 = quantized_pitch_to_hz(quantized_pitch.to(torch.float32))
-    step = _TWO_PI * f0 / OUT_SAMPLE_RATE
-    frame_inc = step * OUT_HOP_LENGTH
+    step, frame_inc = _steps(quantized_pitch)
     inc_mod = _mod(frame_inc, _TWO_PI)
     csum = inc_mod
     if inc_mod.shape[1] > 1:
@@ -314,7 +327,7 @@ def _attention(p, h, i, kv_cache, kv_bank, slot_onehot, compute_dtype):
 
 def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
           pitch_features, speaker_embedding, state, kv_cache=None, compute_dtype=None,
-          kv_bank=None, kv_slot=None, soft_pitch: bool = False):
+          kv_bank=None, kv_slot=None, soft_pitch: bool = False, kv_embedding=None):
     """A chunk of T frames per stream (`waveform_generator.py:315`).
 
     phone: [B, T, phone_channels]; quantized_pitch: [B, T] int bins, or
@@ -323,11 +336,15 @@ def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
     (2.0.0-rc.0), kv_cache {"k", "v"(, "k_scale", "v_scale"): [B,
     n_blocks, L, A(|1)]} from `project_kv`, or kv_bank {"k", "v"(,
     scales): [Z, n_blocks, L, A(|1)]} with kv_slot [B] int, each stream's
-    slot.  With compute_dtype the residual stream and the carries are in
+    slot, or kv_embedding [B, L, Ckv], the raw speaker KV projected here
+    (`layers.py:556 cross_attention`: the K/V weights get a gradient).
+    With compute_dtype the residual stream and the carries are in
     it; the head computes in it.  Returns (audio [B, T*240] f32 in
     [-1, 1], new_state).
     """
     b, t = quantized_pitch.shape
+    if cfg.use_kv_attention and kv_cache is None and kv_slot is None and kv_embedding is not None:
+        kv_cache = project_kv(params, kv_embedding, compute_dtype)
     pe = params["pitch_emb"]
     if compute_dtype is not None:
         pe = pe.to(compute_dtype)  # cast before the gather, as the JAX package

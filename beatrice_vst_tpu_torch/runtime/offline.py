@@ -48,7 +48,7 @@ class ConversionSettings:
 
 
 def build_cond(params, cfg: VoiceConverterConfig, bank, settings: ConversionSettings,
-               batch: int = 1, compute_dtype=None):
+               batch: int = 1, compute_dtype=None, raw_kv: bool = False):
     """The chain's cond dict for `settings` (`offline.py:45`), on the
     bank's device.  With morph_weights (zero-padded to 256) the weights
     are folded, thresholded and pruned, the embeddings averaged once, and
@@ -56,7 +56,9 @@ def build_cond(params, cfg: VoiceConverterConfig, bank, settings: ConversionSett
     bank's count without weights is morph mode with zero embeddings, as
     in the JAX package.  Where the JAX package hands the chain the raw
     speaker KV, the port hands it the projected per-stream K/V cache (the
-    same products, taken once)."""
+    same products, taken once); raw_kv hands it the raw KV under "kv", as
+    the JAX package does, for training (the vocoder projects it in every
+    call, so the gradient reaches the K/V weights; params may be None)."""
     spec = cfg.spec
     n = bank["additive"].shape[0]
     if settings.target_speaker < 0:
@@ -104,7 +106,9 @@ def build_cond(params, cfg: VoiceConverterConfig, bank, settings: ConversionSett
         "pitch_correction": full(float(np.clip(settings.pitch_correction, 0, 1)), f32),
         "pitch_correction_type": full(settings.pitch_correction_type, torch.int64),
     }
-    if spec.has_kv:
+    if spec.has_kv and raw_kv:
+        cond["kv"] = kv
+    elif spec.has_kv:
         cond["kv_cache"] = waveform_generator.project_kv(params["wg"], kv, compute_dtype)
     if spec.has_vq:
         cond["codebook"] = bank["codebook"][cb_idx]

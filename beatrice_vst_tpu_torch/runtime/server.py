@@ -33,6 +33,7 @@ same code runs with ordinary tensors and no events.
 from __future__ import annotations
 
 import collections
+import os
 import sys
 import threading
 import time
@@ -224,8 +225,17 @@ class StreamingServer:
         if prev is not None:
             self._scatter(*prev)
 
+    def tick_period(self) -> float:
+        """Seconds between the free-running loop's ticks: the audio a tick
+        carries (10 ms per frame), times BEATRICE_TICK_PERIOD_SCALE (default
+        1.0; `server.py:186-195`): a host whose tick takes longer than the
+        audio it carries is measured with every clock slowed by that factor,
+        its clients paced at the same scale."""
+        scale = float(os.environ.get("BEATRICE_TICK_PERIOD_SCALE", "1.0"))
+        return self.engine.cfg.frames_per_tick * 0.010 * scale
+
     def _loop(self) -> None:
-        period = self.engine.cfg.frames_per_tick * 0.010
+        period = self.tick_period()
         next_t = time.monotonic()
         while self._running:
             try:

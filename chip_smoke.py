@@ -125,14 +125,44 @@ Phases, each printing one line with its seconds:
                 the swap; the f32 form's launches equal to both engines'
                 ticks, no recovery, no last_error, the scheduler alive
                 before stop().
- 13. profile -- only with `--profile DIR`: where the engine's tick time
+ 13. train_golden -- one distillation step and one GAN step (and each
+                one's second step, after the update) on klatt8 at full
+                width, f32, TF32 off, on the batch stored in
+                tests/data/torch_train_golden.npz with the critics of
+                golden.disc_params: each loss within 1e-4 relative of the
+                JAX package's there, each parameter's gradient norm within
+                1e-3 (golden.train_gate: the attention key biases, zero in
+                exact arithmetic, below 1e-6; the final conv's and the
+                PCD's first bias at 3e-2); the fused upsampler never
+                launched.
+ 14. train   -- `train` and `train_gan` on klatt8 at the CLI's defaults
+                (batch 8, 32 frames), 30 steps each on one batch from
+                make_teacher_batcher: the loss finite and lower at the end
+                than at step 0; steps and audio seconds per second, peak
+                MiB above the memory live before; a run of 15 steps,
+                checkpointed at its end and resumed, repeats the straight
+                run's steps 15-29 within 1e-6 (deterministic algorithms on,
+                cuBLAS with a fixed workspace); the fused upsampler never
+                launched.
+ 15. train_data -- a small parallel corpus from the port's synthesis.py
+                (as scripts/make_corpus.py lays it out), PairDataset and one
+                batch of make_pair_batcher, then `python -m
+                beatrice_vst_tpu_torch.cli train --data` for 10 steps in a
+                subprocess: exit 0 and a weights.npz with klatt8's tree.
+ 16. seqpar  -- runtime/seqpar.py:convert_utterance_sp on klatt8: the golden
+                signal at 4 segments against tests/data/
+                torch_seqpar_golden.npz (the JAX package's) and a 20 s
+                signal at 4 and 8 segments against the port's
+                convert_utterance, each at atol 1e-3; audio seconds per
+                second of each, on the second of two runs.
+ 17. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
 drove it: the engine configurations, the morph engines, the streaming
 halves of parity, the older versions' engines and the in-process serving
-paths serve_golden, serve_pipeline and serve_ws), the card line, and the
-last line
+paths serve_golden, serve_pipeline and serve_ws; the phases from
+train_golden on launch neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -1500,6 +1530,261 @@ def profile_phase(device, out_dir, config, ticks=20):
         device_launches_per_tick=sum(r[2] for r in rows), top=table[:12])
 
 
+TRAIN_GOLDEN = os.path.join(HERE, "tests", "data", "torch_train_golden.npz")
+SEQPAR_GOLDEN = os.path.join(HERE, "tests", "data", "torch_seqpar_golden.npz")
+TRAIN_STEPS = 30
+TRAIN_BATCH = 8  # the CLI's defaults
+TRAIN_FRAMES = 32
+TRAIN_RESUME_STEP = 15
+TRAIN_RESUME_RTOL = 1e-6
+TRAIN_DATA_STEPS = 10
+TRAIN_DATA_TIMEOUT_S = 600
+SEQPAR_SECONDS = 20.0
+SEQPAR_SEGMENTS = (4, 8)
+
+
+def klatt8_numpy():
+    """(model config, params, bank) of klatt8 as numpy arrays."""
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    return cfg, params, bank
+
+
+def no_upsampler_launches(label):
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the fused upsampler was launched: {counts}")
+    return counts
+
+
+def train_golden_phase(device, card):
+    """One distillation step and one GAN step (and each one's second step)
+    on klatt8 on the batch stored in tests/data/torch_train_golden.npz,
+    against the JAX package's losses and per-leaf gradient norms there
+    (golden.train_gate: losses at 1e-4 relative, gradient norms at 1e-3)."""
+    from beatrice_vst_tpu_torch import golden
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    want = golden.load(TRAIN_GOLDEN)
+    batch = {k: want[f"batch/{k}"] for k in ("audio16", "target24", "f0_bin")}
+    reset_launch_counts()
+    got = golden.run_train(cfg, params, bank, device, batch)
+    counts = no_upsampler_launches("train_golden")
+    worst, failed = {}, []
+    for key, value in got.items():
+        ok, dev, bound = golden.train_gate(key, value, float(want[key]))
+        kind = key.split("/")[0] + ("/grad" if "grad/" in key else "/loss")
+        if dev > worst.get(kind, (0.0, ""))[0]:
+            worst[kind] = (dev, key)
+        if not ok:
+            failed.append((key, value, float(want[key]), dev, bound))
+    if failed:
+        raise AssertionError(f"train_golden: {len(failed)} numbers off the golden file: "
+                             f"{failed[:8]}")
+    log("train_golden", t0, model="klatt8", batch=list(batch["audio16"].shape),
+        numbers=len(got), worst=worst, losses={k: v for k, v in got.items() if "grad" not in k},
+        loss_rtol=golden.TRAIN_LOSS_RTOL, grad_rtol=golden.TRAIN_GRAD_RTOL,
+        kernel_launches=counts, nvidia_smi=card)
+
+
+def _train_run(device, kind, params, cfg, batch, steps, **kw):
+    """`train` or `train_gan` over `steps` copies of one batch: (history
+    [(step, loss)], seconds, peak MiB above the memory live before)."""
+    import itertools
+
+    import torch
+    from beatrice_vst_tpu_torch.training import train, train_gan
+
+    fn = train_gan if kind == "gan" else train
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, history = fn(params, cfg, itertools.repeat(batch), steps=steps, log_every=1,
+                    log_fn=lambda *_: None, device=device, **kw)
+    torch.cuda.synchronize()
+    return history, time.perf_counter() - t, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def train_phase(device, card):
+    """`train` and `train_gan` on klatt8 at the CLI's defaults (batch 8, 32
+    frames) for 30 steps each on one teacher batch: the loss finite and
+    lower at the end than at step 0; steps per second, audio seconds per
+    second, peak MiB; a run of 15 steps, checkpointed at its end and
+    resumed, repeats steps 15-29 of the straight run within 1e-6 relative
+    (deterministic algorithms on); the fused upsampler never launched."""
+    import tempfile
+
+    import torch
+    from beatrice_vst_tpu_torch.models import chain
+    from beatrice_vst_tpu_torch.training import make_teacher_batcher
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    teacher = chain.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    batch = next(make_teacher_batcher(cfg, teacher, bank, batch=TRAIN_BATCH,
+                                      frames=TRAIN_FRAMES, seed=0, device=device))
+    audio_s = TRAIN_BATCH * TRAIN_FRAMES * 0.010
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    reset_launch_counts()
+    out = {}
+    try:
+        for kind in ("distill", "gan"):
+            history, seconds, peak = _train_run(device, kind, params, cfg, batch, TRAIN_STEPS)
+            losses = [loss for _, loss in history]
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError(f"train {kind}: losses {losses}")
+            with tempfile.TemporaryDirectory() as d:
+                _train_run(device, kind, params, cfg, batch, TRAIN_RESUME_STEP, ckpt_dir=d)
+                resumed, _, _ = _train_run(device, kind, params, cfg, batch, TRAIN_STEPS,
+                                           ckpt_dir=d, resume=True)
+            straight = dict(history)
+            dev = max(abs(loss - straight[s]) / abs(straight[s]) for s, loss in resumed)
+            if [s for s, _ in resumed] != list(range(TRAIN_RESUME_STEP, TRAIN_STEPS)) or \
+                    not dev <= TRAIN_RESUME_RTOL:
+                raise AssertionError(f"train {kind}: the resumed run deviates by {dev} "
+                                     f"(steps {[s for s, _ in resumed]})")
+            out[kind] = {"loss_first": losses[0], "loss_last": losses[-1],
+                         "steps_per_s": TRAIN_STEPS / seconds,
+                         "audio_seconds_per_s": TRAIN_STEPS * audio_s / seconds,
+                         "seconds": seconds, "peak_mib": peak, "resume_max_rel_dev": dev}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = no_upsampler_launches("train")
+    log("train", t0, model="klatt8", batch=TRAIN_BATCH, frames=TRAIN_FRAMES,
+        steps=TRAIN_STEPS, resume_step=TRAIN_RESUME_STEP, runs=out,
+        kernel_launches=counts, nvidia_smi=card)
+
+
+def make_pairs(root):
+    """A small parallel corpus made by the port's synthesis.py, laid out
+    as scripts/make_corpus.py lays out its pairs: inputs/, targets/,
+    speakers.json and f0_plan.npz.  Returns the pairs directory."""
+    from beatrice_vst_tpu_torch.audio_io import write_wav
+    from beatrice_vst_tpu_torch.training.synthesis import (SR, default_speakers,
+                                                            plan_f0_voiced, render,
+                                                            sample_utterance)
+
+    speakers = default_speakers(3)
+    pairs = os.path.join(root, "pairs")
+    for sub in ("inputs", "targets"):
+        os.makedirs(os.path.join(pairs, sub))
+    rng = np.random.default_rng(0)
+    spk_map, plan = {}, {}
+    for j in range(4):
+        segs, f0 = sample_utterance(rng)
+        renders = [render(segs, f0, spk, np.random.default_rng(131 * j + k), SR)
+                   for k, spk in enumerate(speakers)]
+        for s, t in ((0, 1), (1, 2), (2, 0)):
+            name = f"u{j:03d}_s{s}_t{t}"
+            write_wav(os.path.join(pairs, "inputs", name + ".wav"), renders[s], SR)
+            write_wav(os.path.join(pairs, "targets", name + ".wav"), renders[t], SR)
+            spk_map[name] = t
+            plan[name] = plan_f0_voiced(segs, f0)
+    with open(os.path.join(pairs, "speakers.json"), "w") as f:
+        json.dump(spk_map, f)
+    np.savez(os.path.join(pairs, "f0_plan.npz"), **plan)
+    return pairs
+
+
+def train_data_phase(device, card):
+    """A corpus from the port's synthesis.py, then PairDataset and
+    make_pair_batcher (one batch: shapes, finite, the speakers' cond rows),
+    then `cli train --data` for 10 steps in a subprocess that exits 0 and
+    writes a weights.npz the port loads, with klatt8's tree."""
+    import tempfile
+
+    import torch
+    from beatrice_vst_tpu_torch.models.io import flatten_params, load_weights
+    from beatrice_vst_tpu_torch.training import PairDataset, make_pair_batcher
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    with tempfile.TemporaryDirectory() as root:
+        pairs = make_pairs(root)
+        corpus_s = time.perf_counter() - t0
+        ds = PairDataset(pairs)
+        batch = next(make_pair_batcher(ds, cfg, bank, batch=TRAIN_BATCH, frames=TRAIN_FRAMES,
+                                       seed=0, prefetch=0, device=device))
+        shapes = {k: list(batch[k].shape) for k in ("audio16", "target24", "f0_bin")}
+        if shapes != {"audio16": [TRAIN_BATCH, TRAIN_FRAMES * 160],
+                      "target24": [TRAIN_BATCH, TRAIN_FRAMES * 240],
+                      "f0_bin": [TRAIN_BATCH, TRAIN_FRAMES]} or \
+                not all(bool(torch.isfinite(batch[k]).all()) for k in ("audio16", "target24")):
+            raise AssertionError(f"train_data: batch {shapes}")
+        out = os.path.join(root, "weights.npz")
+        cmd = [sys.executable, "-m", "beatrice_vst_tpu_torch.cli", "train", "--model",
+               MODEL_DIR, "--data", pairs, "--steps", str(TRAIN_DATA_STEPS), "--output", out]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                              timeout=TRAIN_DATA_TIMEOUT_S)
+        cli_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"cli train --data exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        trained = flatten_params(load_weights(out, device="cpu"))
+        ref = flatten_params(params)
+        if sorted(trained) != sorted(ref) or not all(
+                tuple(trained[k].shape) == ref[k].shape and bool(torch.isfinite(trained[k]).all())
+                for k in ref):
+            raise AssertionError("cli train --data: weights.npz is not klatt8's tree")
+    log("train_data", t0, utterances=len(ds.items), frames=ds.n_frames_total(),
+        identity_mode=ds.identity_mode, corpus_seconds=corpus_s, batch=shapes,
+        cli_steps=TRAIN_DATA_STEPS, cli_seconds=cli_s,
+        cli_last_line=proc.stdout.strip().splitlines()[-1], nvidia_smi=card)
+
+
+def seqpar_phase(device, card):
+    """convert_utterance_sp on klatt8: the golden signal at 4 segments
+    against tests/data/torch_seqpar_golden.npz (the JAX package's), and a
+    20 s signal at 4 and 8 segments against the port's convert_utterance,
+    each at atol 1e-3; audio seconds per second of each, on the second of
+    two runs."""
+    import torch
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+    from beatrice_vst_tpu_torch.runtime.seqpar import (chain_receptive_field_frames,
+                                                       convert_utterance_sp)
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
+    rate = golden.OFFLINE_RATE
+    reset_launch_counts()
+
+    def timed(fn, audio):
+        seconds = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = fn(audio)
+            seconds.append(time.perf_counter() - t)
+        return y, len(audio) / rate / seconds[-1]
+
+    got = convert_utterance_sp(params, cfg, bank, golden.offline_signal(), rate, settings,
+                               n_segments=golden.SEQPAR_SEGMENTS, device=device)
+    vs_golden = golden.deviation(got, golden.load(SEQPAR_GOLDEN)["f32"])
+    if not vs_golden["max"] <= golden.F32_ATOL:
+        raise AssertionError(f"seqpar vs the golden file: {vs_golden}")
+    long = golden.offline_signal(seconds=SEQPAR_SECONDS)
+    ref, ref_rate = timed(lambda a: convert_utterance(params, cfg, bank, a, rate, settings,
+                                                      device=device), long)
+    runs = {}
+    for n in SEQPAR_SEGMENTS:
+        y, r = timed(lambda a: convert_utterance_sp(params, cfg, bank, a, rate, settings,
+                                                    n_segments=n, device=device), long)
+        dev = golden.deviation(y, ref)
+        if y.shape != ref.shape or not dev["max"] <= golden.F32_ATOL:
+            raise AssertionError(f"seqpar {n} segments vs convert_utterance: {dev}")
+        runs[n] = {"vs_sequential": dev, "audio_seconds_per_s": r}
+    counts = no_upsampler_launches("seqpar")
+    log("seqpar", t0, model="klatt8", rate=rate, warmup_frames=chain_receptive_field_frames(cfg),
+        golden_vs=vs_golden, audio_seconds=SEQPAR_SECONDS, sequential_audio_seconds_per_s=ref_rate,
+        segments=runs, tol=golden.F32_ATOL, kernel_launches=counts, nvidia_smi=card)
+
+
 def main() -> int:
     import torch
 
@@ -1507,6 +1792,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    # deterministic cuBLAS for the train phase's resume check; set before
+    # the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -1549,6 +1837,10 @@ def main() -> int:
     for dtype in (None, "bfloat16"):
         serve_tcp_phase(device, card, dtype)
     by_path["float32"]["serve_ws"] = serve_ws_phase(device, card)
+    train_golden_phase(device, card)
+    train_phase(device, card)
+    train_data_phase(device, card)
+    seqpar_phase(device, card)
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())
         entry["launches_by_path"] = by_path[form]

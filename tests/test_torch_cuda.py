@@ -576,3 +576,49 @@ def test_serving_tick_syncs_only_on_the_output_copy(cuda_device, pipeline):
     out = s.pull(480 * 3)
     assert len(out) == 480 * 3 and np.isfinite(out).all()
     assert sum(len(p) for p in pulls[0]) == 480 * (2 if pipeline else 3)
+
+
+@pytest.mark.cuda
+def test_fused_upsampler_refuses_autograd(cuda_device):
+    """The kernel has no backward (the JAX kernel has no VJP): under
+    autograd, with an input that requires grad, the CUDA route raises
+    instead of returning outputs without a gradient, and launches
+    nothing; with no input requiring grad, or under no_grad, it runs."""
+    up, final, h, states, src = _upsampler_args(16, 5, cuda_device)
+    before = FU.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        FU.fused_upsample(up, final, h.clone().requires_grad_(True), states, src)
+    up[0]["conv"]["w"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        FU.fused_upsample(up, final, h, states, src)
+    assert FU.launches == before
+    with torch.no_grad():
+        FU.fused_upsample(up, final, h, states, src)
+    up[0]["conv"]["w"].requires_grad_(False)
+    FU.fused_upsample(up, final, h, states, src)
+    torch.cuda.synchronize()
+    assert FU.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_never_launches_the_kernel(cuda_device):
+    """A train step at one frame a batch (T = 1, where the vocoder's head
+    is the fused upsampler's route) takes the plain head under autograd:
+    no launch, gradients in every stage of the head."""
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+    from beatrice_vst_tpu_torch.training import distill
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    assert cfg == VoiceConverterConfig.for_version(V20RC0) and cfg.wg.upsampler_kernel
+    batch = golden.train_inputs(cfg, bank, cuda_device, golden.train_batch(frames=1))
+    p = distill.trainable(params, cuda_device)
+    before = FU.launches
+    loss, _ = distill.distillation_loss(p, cfg, batch["audio16"], batch["target24"],
+                                        batch["cond"], f0_bin=batch["f0_bin"])
+    loss.backward()
+    torch.cuda.synchronize()
+    assert FU.launches == before
+    for stage in p["wg"]["up"]:
+        assert float(stage["conv"]["w"].grad.abs().max()) > 0

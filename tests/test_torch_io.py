@@ -88,7 +88,8 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
-    forbidden = re.compile(r"import jax|from jax|\bbeatrice_vst_tpu\.|from beatrice_vst_tpu\b"
+    forbidden = re.compile(r"import jax|from jax|import optax|from optax"
+                           r"|\bbeatrice_vst_tpu\.|from beatrice_vst_tpu\b"
                            r"|import beatrice_vst_tpu\b")
     for path in files:
         text = open(path).read()
@@ -100,4 +101,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 roots = [(node.module or "").split(".")[0]]
             else:
                 continue
-            assert not {"jax", "jaxlib", "beatrice_vst_tpu"} & set(roots), (path, roots)
+            assert not {"jax", "jaxlib", "optax", "beatrice_vst_tpu"} & set(roots), (path, roots)

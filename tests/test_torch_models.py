@@ -520,3 +520,43 @@ def test_waveform_generator_slot_bank(params, dtype):
         port, jax_bf16, ref = (np.stack(runs[k]) for k in ("port", "jax", "jax_f32"))
         for stat in (lambda d: np.abs(d).max(), lambda d: np.sqrt(np.mean(d * d))):
             assert stat(port - ref) <= 2 * stat(jax_bf16 - ref)
+
+
+def test_vq_int8_query_on_the_klatt8_int8_codebook():
+    """`int8_query=True` (`chain.apply(vq_int8_query=True)`, JAX
+    `phone_extractor.py:258-276`) on klatt8's codebooks quantized per row
+    to int8: the smoothing against JAX at 1e-5 (the query's int8
+    distances are exact integer sums in both packages), and one chain
+    frame through the shared int8 bank at the module's tolerance."""
+    import os
+
+    from beatrice_vst_tpu.models.io import load_model_dir
+    from beatrice_vst_tpu.runtime import offline as JO
+
+    _, jcfg, jparams, jbank = load_model_dir(os.path.join(os.path.dirname(__file__), "..",
+                                                          "models_demo", "klatt8"))
+    cb_q, cb_s = JL.quantize_rows(jnp.asarray(jbank["codebook"]))
+    rng = np.random.default_rng(21)
+    phone = rng.standard_normal((4, 1, 128)).astype(np.float32)
+    idx = np.array([0, 3, 5, 7], np.int32)
+    n = np.array([1, 2, 4, 8], np.int32)
+    want = JPE.vq_knn_smooth_shared(jnp.asarray(phone), cb_q, jnp.asarray(idx), jnp.asarray(n),
+                                    codebook_scale=cb_s, int8_query=True)
+    got = PPE.vq_knn_smooth_shared(torch.from_numpy(phone), _t(cb_q), _t(idx), _t(n),
+                                   codebook_scale=_t(cb_s), int8_query=True)
+    print(f" smoothing max |d| {np.abs(got.numpy() - np.asarray(want)).max():.3g}", end="")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+    jcond = JO.build_cond(jcfg, jbank, JO.ConversionSettings(target_speaker=2), batch=4)
+    jcond = {**{k: v for k, v in jcond.items() if k != "codebook"},
+             "codebook_bank": cb_q, "codebook_bank_scale": cb_s,
+             "codebook_idx": jnp.asarray(idx), "vq_num_neighbors": jnp.asarray(n)}
+    audio = (0.3 * rng.standard_normal((4, 160))).astype(np.float32)
+    want, _ = jax.jit(lambda p, a, c: JC.apply(p, jcfg, a, JC.init_state(jcfg, (4,)), c,
+                                               vq_int8_query=True))(
+        jparams, jnp.asarray(audio), jcond)
+    pcond = {k: _t(v) for k, v in jcond.items()}
+    pparams = params_from_numpy(jparams, "cpu")
+    got, _ = PC.apply(pparams, PCFG, torch.from_numpy(audio), PC.init_state(PCFG, (4,), "cpu"),
+                      pcond, vq_int8_query=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -320,6 +320,30 @@ def test_client_threads_edit_streams_while_the_scheduler_ticks():
     host.stop()
 
 
+@pytest.mark.parametrize("scale", [None, "2"])
+def test_tick_period_scale(monkeypatch, scale):
+    """BEATRICE_TICK_PERIOD_SCALE stretches the free-running loop's period
+    (`beatrice_vst_tpu/runtime/server.py:186-195`): 10 ms a frame times the
+    scale.  With the tick itself a no-op, the loop's cadence over 0.5 s is
+    the period's: at most 0.5 s / period + 2 ticks, and at scale 2 about
+    half as many as at scale 1."""
+    if scale is None:
+        monkeypatch.delenv("BEATRICE_TICK_PERIOD_SCALE", raising=False)
+    else:
+        monkeypatch.setenv("BEATRICE_TICK_PERIOD_SCALE", scale)
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    engine = StreamEngine(EngineConfig(capacity=2, model=cfg), params, bank, device="cpu")
+    srv = StreamingServer(engine, realtime=True)
+    period = 0.010 * float(scale or 1)
+    assert srv.tick_period() == pytest.approx(period)
+    ticks = []
+    monkeypatch.setattr(srv, "tick_once", lambda: ticks.append(time.monotonic()))
+    srv.start()
+    time.sleep(0.5)
+    srv.stop()
+    assert 0.5 / period * 0.6 <= len(ticks) <= 0.5 / period + 2, len(ticks)
+
+
 if __name__ == "__main__":
     run = _jax_run()
     np.savez_compressed(GOLDEN, **run)
