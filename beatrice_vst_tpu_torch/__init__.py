@@ -19,9 +19,12 @@ hand-written CUDA kernel in an f32 and a bf16 form
 `csrc/fused_upsampler_bf16.cu`); training (`training/`: distillation,
 feature distillation, the GAN step with its critics, the WAV-pair data
 pipeline, checkpoints, `cli train`), which runs the plain head under
-autograd; and sequence-parallel offline conversion (`runtime/seqpar.py`,
-`cli convert --seq-parallel`), its segments one batch on one card.
-Multi-GPU (`parallel/`) is not ported yet.
+autograd; sequence-parallel offline conversion (`runtime/seqpar.py`,
+`cli convert --seq-parallel`); and the multi-device layer (`parallel/`:
+a ('streams', 'model') `DeviceMesh` over `torch.distributed` ranks, the
+JAX package's sharding rules, the collectives of tensor and data
+parallelism), on which the tick, seqpar and both trainers run.  Every
+module of the JAX package now has its counterpart here.
 
 Importing the package builds nothing and touches no GPU: kernels are
 compiled with `nvcc` at their first launch, and the host-edge library with

@@ -418,54 +418,71 @@ def train_inputs(cfg, bank, device, batch_np=None) -> dict:
     return out
 
 
-def run_train(cfg, params, bank, device, batch_np=None) -> dict:
+def run_train(cfg, params, bank, device, batch_np=None, mesh=None,
+              model_parallel: bool = False) -> dict:
     """The port's numbers of the train golden file (the keys above but
     "batch/*"): one distillation step and one GAN step from `params` on
-    the golden batch, and each one's second step, as Python floats."""
+    the golden batch, and each one's second step, as Python floats.  With
+    a `mesh` (`parallel/mesh.py`, every rank calling this with the same
+    arguments), data-parallel over its 'streams' axis (this rank's rows,
+    the whole batch's losses, the gradients summed over 'streams') and
+    with model_parallel the generator's weights split over 'model'; the
+    gradient norms are those of the whole gradients."""
     import torch
 
-    from .models.io import flatten_params
+    from .models.io import flatten_params, params_from_numpy
+    from .parallel import collectives
+    from .parallel.mesh import params_sharding, shard_tree, state_sharding
     from .training import distill, gan
 
+    group = collectives.dp_group(mesh)
     batch = train_inputs(cfg, bank, device, batch_np)
+    generator = params
+    if mesh is not None:
+        batch = shard_tree(batch, state_sharding(batch, mesh), mesh)
+        generator = params_from_numpy(params, device)
+        generator = shard_tree(generator, params_sharding(generator, mesh,
+                                                          model_parallel=model_parallel), mesh)
     out = {}
 
     def norms(prefix, tree):
-        out.update({f"{prefix}/{k}": float(torch.linalg.norm(v.grad))
+        out.update({f"{prefix}/{k}": float(torch.linalg.norm(collectives.gathered(v.grad)))
                     for k, v in flatten_params(tree).items()})
 
     def distill_loss(p):
         return distill.distillation_loss(p, cfg, batch["audio16"], batch["target24"],
                                          batch["cond"], f0_bin=batch["f0_bin"],
-                                         periodicity_weight=TRAIN_PERIO)
+                                         periodicity_weight=TRAIN_PERIO, group=group)
 
-    p = distill.trainable(params, device)
+    p = distill.trainable(generator, device)
     opt = distill.make_optimizer(p, TRAIN_LR)
     loss, aux = distill_loss(p)
     loss.backward()
-    out["distill/loss"] = float(loss)
+    if group is not None:
+        collectives.all_reduce_grads_(opt.leaves, group)
+    out["distill/loss"] = float(loss.detach())
     out.update({f"distill/{k}": float(v) for k, v in aux.items()})
     norms("distill/grad", p)
     opt.step()
     with torch.no_grad():
         out["distill/loss2"] = float(distill_loss(p)[0])
 
-    g = distill.trainable(params, device)
+    g = distill.trainable(generator, device)
     d = distill.trainable(disc_params(), device)
     gen_opt, disc_opt = gan.make_gan_optimizers(g, d, TRAIN_LR)
     with torch.no_grad():
         fake = gan._generate(g, cfg, batch)
-    d_loss = gan.disc_loss(d, batch["target24"], fake, batch["f0_bin"])
-    gan.set_grads(d_loss, disc_opt)
+    d_loss = gan.disc_loss(d, batch["target24"], fake, batch["f0_bin"], group)
+    gan.set_grads(d_loss, disc_opt, group)
     norms("gan/d_grad", d)
     disc_opt.step()
-    g_loss, aux = gan.gen_loss(g, d, cfg, batch)
-    gan.set_grads(g_loss, gen_opt)
+    g_loss, aux = gan.gen_loss(g, d, cfg, batch, group=group)
+    gan.set_grads(g_loss, gen_opt, group)
     norms("gan/g_grad", g)
     gen_opt.step()
     out.update({"gan/d_loss": float(d_loss), "gan/g_loss": float(g_loss)})
     out.update({f"gan/{k}": float(v) for k, v in aux.items()})
-    metrics = gan.gan_train_step(g, d, gen_opt, disc_opt, batch, cfg=cfg)[-1]
+    metrics = gan.gan_train_step(g, d, gen_opt, disc_opt, batch, cfg=cfg, mesh=mesh)[-1]
     out["gan/d_loss2"] = float(metrics["d_loss"])
     out["gan/g_loss2"] = float(metrics["g_loss"])
     return out

@@ -51,6 +51,7 @@ import math
 import torch
 
 from ..constants import OUT_HOP_LENGTH
+from ..parallel import collectives
 from . import layers
 
 RATES = (4, 5, 4, 3)
@@ -167,6 +168,7 @@ def _check(up_params, final_params, h, states, src_feats):
         raise ValueError("fused_upsample takes 4 stages, 5 carries and 4 source tensors")
     if h.dtype not in DTYPES:
         raise ValueError(f"fused_upsample computes in float32 or bfloat16, not {h.dtype}")
+    _refuse_split(up_params, final_params)
     b = h.shape[0]
     want_h, want_states, want_src, want_stages, want_final = expected_shapes(b)
     wants = [want_h, *want_states, *want_src]
@@ -196,6 +198,16 @@ def _check_layout(tensors):
             raise ValueError(f"fused_upsample argument {i} is not contiguous")
         if t.data_ptr() % _ALIGN:
             raise ValueError(f"fused_upsample argument {i} is not {_ALIGN}-byte aligned")
+
+
+def _refuse_split(up_params, final_params):
+    """Raise on a weight split over 'model' (a `DTensor`): the head runs its
+    four stages on one rank and needs every weight whole (`shard_tree`
+    keeps them whole, `parallel/mesh.py:KEPT_WHOLE`)."""
+    for i, t in enumerate(_flat_weights(up_params, final_params)):
+        if collectives.is_sharded(t):
+            raise ValueError(f"fused_upsample weight {i} is split over 'model' (a DTensor): "
+                             "the head needs every weight whole")
 
 
 def head_params(up_params, final_params, dtype):

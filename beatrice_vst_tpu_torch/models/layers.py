@@ -31,6 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
+
 _M32 = 0xFFFFFFFF
 
 
@@ -152,14 +154,36 @@ def gelu(x):
 
 
 def conv_block(params, x, state, dilation: int = 1, compute_dtype=None):
-    """Pre-LN ConvNeXt-style causal block (`layers.py:389`)."""
+    """Pre-LN ConvNeXt-style causal block (`layers.py:389`).  With the MLP's
+    weights split over 'model' (`DTensor`s, `parallel/mesh.py`) the MLP is
+    tensor-parallel (`_mlp_model_parallel`)."""
     h = layer_norm(params["ln"], x)
     h, new_state = causal_conv(params["conv"], h, state, dilation, compute_dtype)
     h = gelu(h)
-    h = linear(params["mlp_in"], h, compute_dtype)
-    h = gelu(h)
-    h = linear(params["mlp_out"], h, compute_dtype)
+    if collectives.is_sharded(params["mlp_in"]["w"]):
+        h = _mlp_model_parallel(params["mlp_in"], params["mlp_out"], h, compute_dtype)
+    else:
+        h = linear(params["mlp_in"], h, compute_dtype)
+        h = gelu(h)
+        h = linear(params["mlp_out"], h, compute_dtype)
     return x + h.to(x.dtype), new_state
+
+
+def _mlp_model_parallel(p_in, p_out, h, compute_dtype=None):
+    """The MLP with mlp_in column-parallel (w [in, out/m], b [out/m] on each
+    rank) and mlp_out row-parallel (w [out/m, in]): the replicated input
+    through `copy_to_model`, each rank's block of the hidden layer, its
+    partial product summed by `reduce_from_model` in f32, then the bias
+    added once and the result rounded as `linear` rounds it."""
+    group = collectives.model_group(p_in["w"])
+    h = collectives.copy_to_model(h, group)
+    h = gelu(linear({"w": collectives.local(p_in["w"]), "b": collectives.local(p_in["b"])}, h,
+                    compute_dtype))
+    w = collectives.local(p_out["w"])
+    if compute_dtype is None:
+        return collectives.reduce_from_model(torch.matmul(h, w), group) + p_out["b"]
+    y = collectives.reduce_from_model(matmul_f32(h.to(compute_dtype), w.to(compute_dtype)), group)
+    return (y + p_out["b"].float()).to(compute_dtype)
 
 
 def cross_attention_project_kv(params, kv, compute_dtype=None):

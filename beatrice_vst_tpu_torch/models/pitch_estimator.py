@@ -18,6 +18,7 @@ import torch
 from ..constants import VersionSpec
 from ..device import resolve_device
 from ..ops.frontend import MelFrontend
+from ..parallel import collectives
 from . import layers
 from .io import params_from_numpy
 
@@ -84,6 +85,20 @@ def expected_bin(logits, min_quantized_pitch, max_quantized_pitch):
     return (probs * bins).sum(dim=-1)
 
 
+def _logits(params, h, compute_dtype=None):
+    """The bin logits [B, T, bins] f32.  With the head split over 'model'
+    (column-parallel, `parallel/mesh.py`) each rank computes its block of
+    bins and the blocks are gathered before the argmax reads them."""
+    w = params["w"]
+    if not collectives.is_sharded(w):
+        return layers.linear(params, h, compute_dtype, out_dtype=torch.float32)
+    group = collectives.model_group(w)
+    h = collectives.copy_to_model(h, group)
+    block = layers.linear({"w": collectives.local(w), "b": collectives.local(params["b"])}, h,
+                          compute_dtype, out_dtype=torch.float32)
+    return collectives.gather_from_model(block, group)
+
+
 def apply(params, cfg: PitchEstimatorConfig, audio, state,
           min_quantized_pitch, max_quantized_pitch, compute_dtype=None,
           with_logits: bool = False):
@@ -105,7 +120,7 @@ def apply(params, cfg: PitchEstimatorConfig, audio, state,
         new_blocks.append(ns)
     h = layers.layer_norm(params["out_ln"], h)
     f32 = torch.float32
-    logits = layers.linear(params["logits"], h, compute_dtype, out_dtype=f32)
+    logits = _logits(params["logits"], h, compute_dtype)
     features = layers.linear(params["features"], h, compute_dtype, out_dtype=f32)
     qp = torch.argmax(_masked(logits, min_quantized_pitch, max_quantized_pitch), dim=-1)
     new_state = {"audio": new_audio, "blocks": new_blocks}

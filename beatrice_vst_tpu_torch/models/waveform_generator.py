@@ -31,6 +31,7 @@ import torch
 
 from ..constants import OUT_HOP_LENGTH, OUT_SAMPLE_RATE, VersionSpec
 from ..device import resolve_device
+from ..parallel import collectives
 from . import layers
 from .fused_upsampler import fused_upsample, fused_upsample_reference, head_params
 from .io import params_from_numpy
@@ -345,7 +346,9 @@ def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
     b, t = quantized_pitch.shape
     if cfg.use_kv_attention and kv_cache is None and kv_slot is None and kv_embedding is not None:
         kv_cache = project_kv(params, kv_embedding, compute_dtype)
-    pe = params["pitch_emb"]
+    # split over 'model' (`parallel/mesh.py`), the table's block of hidden
+    # columns on this rank: its rows are looked up, then gathered
+    pe = collectives.local(params["pitch_emb"])
     if compute_dtype is not None:
         pe = pe.to(compute_dtype)  # cast before the gather, as the JAX package
     if soft_pitch:
@@ -357,6 +360,9 @@ def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
     else:
         qp = torch.clamp(quantized_pitch, 0, cfg.pitch_bins - 1)
         pitch_term = pe[qp]
+    if collectives.is_sharded(params["pitch_emb"]):
+        pitch_term = collectives.gather_from_model(
+            pitch_term, collectives.model_group(params["pitch_emb"]))
     h = (layers.linear(params["phone_in"], phone, compute_dtype)
          + pitch_term
          + layers.linear(params["feat_in"], pitch_features, compute_dtype))

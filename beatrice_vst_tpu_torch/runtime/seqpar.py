@@ -18,9 +18,14 @@ source phase and the noise counter:
     segment's starting phase, less what its own warmup adds; pass B runs
     the whole chain on every segment with that phase.
 
-Here the segments are a batch axis on one device.  Sharding them over
-several devices (the JAX `mesh` argument) waits for the port's
-multi-device layer and is not accepted yet.
+Without a mesh the segments are one batch on one device.  With a `mesh`
+(`parallel/mesh.py`) the segment-major work axis of segments 1..s-1,
+(s-1)*B rows, is split over the ranks of its `axis`: each rank runs pass A
+on its rows and the increments are all-gathered, every rank takes the
+float64 prefix on its host, each rank runs pass B on its rows and the
+outputs are all-gathered.  Segment 0 runs on every rank.  Where (s-1)*B
+does not divide by the axis size the work axis is not split and every rank
+runs it whole: the JAX package's own rule (`seqpar.py:190-191`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..models.chain import VoiceConverterConfig
 from ..models.io import params_from_numpy
 from ..ops.pitch_math import transform_pitch
 from ..ops.resample import make_resampler
+from ..parallel.mesh import all_gather_cat, axis_sizes
 from .offline import ConversionSettings, _block_for, build_cond
 
 
@@ -87,12 +93,26 @@ def _chain_pass(params, cfg, seg16, cond, phase0, counter0, compute_dtype, soft_
     return chain.apply(params, cfg, seg16, state, cond, compute_dtype, soft_pitch=soft_pitch)[0]
 
 
+def _work_rows(n: int, mesh, axis: str):
+    """(this rank's rows of the n-row work axis, the function that gathers
+    a result of those rows back to n rows): a block of n/k rows on each of
+    the k ranks of the mesh's `axis`; all rows, and no gather, without a
+    mesh or where n does not divide by k (`seqpar.py:190-191`)."""
+    k = 1 if mesh is None else axis_sizes(mesh)[axis]
+    if k == 1 or n % k:
+        return slice(0, n), lambda x: x
+    block = n // k
+    r = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    return slice(r * block, (r + 1) * block), lambda x: all_gather_cat(x, 0, group)
+
+
 @torch.no_grad()
 def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_rate: float,
                          settings: ConversionSettings | None = None, n_segments: int = 8,
                          warmup_frames: int | None = None,
                          out_sample_rate: float | None = None, compute_dtype=None,
-                         device="cuda"):
+                         device="cuda", mesh=None, axis: str = "streams"):
     """Convert one utterance [n] (or a batch [B, n]) at `sample_rate` with
     its frame axis cut into `n_segments` segments (`seqpar.py:136`).
     Returns numpy f32 at `out_sample_rate` (default: the input rate), the
@@ -101,7 +121,10 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
     The segment count is capped so that every segment is at least the
     warmup long (each halo is real audio); segment 0 starts from the true
     zero state.  params and bank: numpy arrays or tensors, moved to
-    `device`."""
+    `device`.  With a `mesh`, every rank of it calls this with the same
+    arguments and gets the whole result; the segments' rows are split over
+    the ranks of `axis` where (s-1)*B divides by its size, else every rank
+    converts them all (the JAX package's rule)."""
     settings = settings or ConversionSettings()
     out_sample_rate = out_sample_rate or sample_rate
     w = int(chain_receptive_field_frames(cfg) if warmup_frames is None else warmup_frames)
@@ -135,9 +158,14 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
         cond = {k: v.repeat((s - 1,) + (1,) * (v.dim() - 1)) if isinstance(v, torch.Tensor)
                 else {kk: vv.repeat((s - 1,) + (1,) * (vv.dim() - 1)) for kk, vv in v.items()}
                 for k, v in cond1.items()}
+        rows, gather = _work_rows((s - 1) * b, mesh, axis)
+        segs, cond = segs[rows], {k: v[rows] if isinstance(v, torch.Tensor)
+                                  else {kk: vv[rows] for kk, vv in v.items()}
+                                  for k, v in cond.items()}
         # pass A: increments of every frame; the phase prefix on the host in f64
         inc0 = _pitch_pass(params, cfg, seg0, cond1, compute_dtype, settings.soft_pitch)
-        inc_seg = _pitch_pass(params, cfg, segs, cond, compute_dtype, settings.soft_pitch)
+        inc_seg = gather(_pitch_pass(params, cfg, segs, cond, compute_dtype,
+                                     settings.soft_pitch))
         inc0 = inc0.double().cpu().numpy()
         inc_seg = inc_seg.double().cpu().numpy().reshape(s - 1, b, w + f)
         inc_real = np.concatenate(
@@ -150,9 +178,10 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
         # pass B: the whole chain on every segment, the warmup dropped
         y0 = _chain_pass(params, cfg, seg0, cond1, zeros, zero_counter, compute_dtype,
                          settings.soft_pitch)
-        y = _chain_pass(params, cfg, segs, cond,
-                        torch.from_numpy(phase0.reshape(-1)).to(dev),
-                        torch.from_numpy(counter0).to(dev), compute_dtype, settings.soft_pitch)
+        y = gather(_chain_pass(params, cfg, segs, cond,
+                               torch.from_numpy(phase0.reshape(-1)[rows]).to(dev),
+                               torch.from_numpy(counter0[rows]).to(dev), compute_dtype,
+                               settings.soft_pitch))
         rest = y[:, w * OUT_HOP_LENGTH:].reshape(s - 1, b, f * OUT_HOP_LENGTH)
         rest = rest.permute(1, 0, 2).reshape(b, (s - 1) * f * OUT_HOP_LENGTH)
         y24 = torch.cat([y0, rest], dim=-1)[:, :t_real * OUT_HOP_LENGTH]

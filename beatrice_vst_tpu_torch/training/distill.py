@@ -27,6 +27,8 @@ import torch
 from ..device import resolve_device
 from ..models import chain
 from ..models.io import params_from_numpy
+from ..parallel.collectives import (all_reduce_grads_, dp_group, global_mean, global_norm,
+                                    global_sum, is_sharded, model_group, reduce_sum)
 
 STFT_RESOLUTIONS = ((512, 128), (1024, 256), (256, 64))  # (fft, hop)
 
@@ -82,13 +84,17 @@ def _stft_mag(x, n_fft: int, hop: int):
     return torch.fft.rfft(x[..., idx] * win, dim=-1).abs()
 
 
-def multi_resolution_stft_loss(pred, target):
+def multi_resolution_stft_loss(pred, target, group=None):
+    """Spectral convergence plus log-magnitude L1 at each resolution; with a
+    data-parallel `group`, of the whole batch (norms and means over every
+    rank's rows, `parallel/collectives.py`)."""
     loss = 0.0
     for n_fft, hop in STFT_RESOLUTIONS:
         p = _stft_mag(pred, n_fft, hop)
         t = _stft_mag(target, n_fft, hop)
-        sc = torch.linalg.norm(t - p) / (torch.linalg.norm(t) + 1e-6)  # spectral convergence
-        mag = torch.mean(torch.abs(torch.log(p + 1e-5) - torch.log(t + 1e-5)))
+        # spectral convergence
+        sc = global_norm(t - p, group) / (global_norm(t, group) + 1e-6)
+        mag = global_mean(torch.abs(torch.log(p + 1e-5) - torch.log(t + 1e-5)), group)
         loss = loss + sc + mag
     return loss / len(STFT_RESOLUTIONS)
 
@@ -102,29 +108,32 @@ def f0_to_bin(f0_hz, pitch_bins: int):
     return np.where(f0 > 0, bins, 0).astype(np.int32)
 
 
-def pitch_supervision_losses(taps, f0_bin):
+def pitch_supervision_losses(taps, f0_bin, group=None):
     """(CE on the pitch bins over voiced frames, BCE of the voicing gate
     -- pitch feature 0 as a logit) from chain taps; f0_bin [B, T] int,
-    0 = unvoiced (`distill.py:65`)."""
+    0 = unvoiced (`distill.py:65`).  With a data-parallel `group`, of the
+    whole batch: the CE is the masked sum over every rank's rows over their
+    voiced count, not a mean of the ranks' ratios."""
     logits = taps["pitch_logits"]  # [B, T, bins]
     t = min(logits.shape[1], f0_bin.shape[1])
     lg, fb = logits[:, :t], f0_bin[:, :t].to(torch.int64)
     voiced = (fb > 0).float()
     ce = -torch.gather(torch.log_softmax(lg, -1), -1, fb[..., None])[..., 0]
-    l_f0 = torch.sum(ce * voiced) / torch.clamp(voiced.sum(), min=1.0)
+    l_f0 = global_sum(ce * voiced, group) / torch.clamp(global_sum(voiced, group), min=1.0)
     per = taps["pitch_feats"][:, :t, 0]
-    l_voice = torch.mean(torch.clamp(per, min=0) - per * voiced
-                         + torch.log1p(torch.exp(-torch.abs(per))))
+    l_voice = global_mean(torch.clamp(per, min=0) - per * voiced
+                          + torch.log1p(torch.exp(-torch.abs(per))), group)
     return l_f0, l_voice
 
 
-def periodicity_loss(pred24, f0_bin, frame: int = 240, window: int = 480):
+def periodicity_loss(pred24, f0_bin, frame: int = 240, window: int = 480, group=None):
     """1 - the normalized autocorrelation of the rendered 24 kHz waveform
     at the ground-truth period lag, averaged over voiced frames whose
     window and lag stay inside the signal (`distill.py:93`).  Both gathers
     are clamped to the signal (the JAX package clamps the lagged one and
     relies on the gather's own clamping for the other); the mask keeps
-    the clamped frames out."""
+    the clamped frames out.  With a data-parallel `group`, the masked sum
+    and the count are the whole batch's."""
     bsz, n = pred24.shape
     dev = pred24.device
     t_n = min(f0_bin.shape[1], n // frame)
@@ -146,15 +155,17 @@ def periodicity_loss(pred24, f0_bin, frame: int = 240, window: int = 480):
     e1 = torch.sum(x1 * x1, -1)
     r = dot * torch.rsqrt(e0 * e1 + 1e-8)
     mask = (fb > 0).float() * valid.float()
-    return torch.sum((1.0 - r) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return global_sum((1.0 - r) * mask, group) / torch.clamp(global_sum(mask, group), min=1.0)
 
 
 def distillation_loss(params, cfg, audio16, target24, cond, state=None, f0_bin=None,
                       f0_weight: float = 1.0, soft_pitch: bool = False,
-                      periodicity_weight: float = 0.0):
+                      periodicity_weight: float = 0.0, group=None):
     """Forward the chain and score it against the target 24 kHz waveform
     (`distill.py:151`): (total, {"stft", "l1"[, "f0", "voice"][, "perio"]}).
-    f0_bin: optional [B, T] ground-truth pitch bins (0 = unvoiced)."""
+    f0_bin: optional [B, T] ground-truth pitch bins (0 = unvoiced).  With a
+    data-parallel `group` the rows are this rank's and the losses the
+    whole batch's."""
     cfg = trainer_config(cfg)
     if state is None:
         state = chain.init_state(cfg, (audio16.shape[0],), audio16.device)
@@ -164,14 +175,14 @@ def distillation_loss(params, cfg, audio16, target24, cond, state=None, f0_bin=N
     else:
         pred, _, taps = chain.apply(params, cfg, audio16, state, cond, with_taps=True,
                                     soft_pitch=soft_pitch)
-        l_f0, l_voice = pitch_supervision_losses(taps, f0_bin)
+        l_f0, l_voice = pitch_supervision_losses(taps, f0_bin, group)
         aux = {"f0": l_f0, "voice": l_voice}
-    l_stft = multi_resolution_stft_loss(pred, target24)
-    l_wav = torch.mean(torch.abs(pred - target24))
+    l_stft = multi_resolution_stft_loss(pred, target24, group)
+    l_wav = global_mean(torch.abs(pred - target24), group)
     total = (l_stft + l_wav + f0_weight * aux.get("f0", 0.0)
              + f0_weight * aux.get("voice", 0.0))
     if periodicity_weight and f0_bin is not None:
-        l_perio = periodicity_loss(pred, f0_bin)
+        l_perio = periodicity_loss(pred, f0_bin, group=group)
         total = total + periodicity_weight * l_perio
         aux["perio"] = l_perio
     return total, {"stft": l_stft, "l1": l_wav, **aux}
@@ -205,13 +216,17 @@ class Optimizer:
     bias-corrected moments, eps outside the square root.  A parameter
     without a gradient gets a zero one, so weight decay reaches it as in
     optax.  The moments are made at construction, so that a checkpoint
-    holds the same leaves before the first step as after it."""
+    holds the same leaves before the first step as after it.  Leaves split
+    over 'model' (`DTensor`s) are updated on their blocks, one tensor at a
+    time (the multi-tensor path takes no mix of `DTensor`s and tensors)."""
 
     def __init__(self, params, lr: float, *, betas, weight_decay: float, eps: float = 1e-8,
                  schedule=None, clip_norm: float | None = None):
         self.leaves = tree_leaves(params)
+        split = any(is_sharded(p) for p in self.leaves)
         self.adamw = torch.optim.AdamW(self.leaves, lr=lr, betas=betas, eps=eps,
-                                       weight_decay=weight_decay)
+                                       weight_decay=weight_decay,
+                                       foreach=False if split else None)
         for p in self.leaves:
             self.adamw.state[p] = {"step": torch.tensor(0.0),
                                    "exp_avg": torch.zeros_like(p),
@@ -262,10 +277,18 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
     """optax.clip_by_global_norm in place: with g_norm the L2 norm over
     every gradient, unchanged if g_norm < max_norm, else each gradient
     becomes (g / g_norm) * max_norm (torch's clip_grad_norm_ scales by
-    max_norm / (g_norm + 1e-6) instead).  No host synchronisation."""
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    max_norm / (g_norm + 1e-6) instead).  No host synchronisation.  The
+    gradient of a leaf split over 'model' counts with every rank's block
+    (its squares summed over the 'model' group)."""
+    squares = [torch.sum(g.float() * g.float()) for g in grads if not is_sharded(g)]
+    for g in grads:
+        if is_sharded(g):
+            block = g.to_local().float()
+            squares.append(reduce_sum(torch.sum(block * block), model_group(g)))
+    norm = torch.sqrt(sum(squares))
     keep = norm < max_norm
     for g in grads:
+        g = g.to_local() if is_sharded(g) else g
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
 
 
@@ -280,16 +303,25 @@ def make_optimizer(params, lr: float = 2e-4, weight_decay: float = 1e-2,
 
 
 def train_step(params, optimizer: Optimizer, batch, *, cfg, f0_weight: float = 1.0,
-               soft_pitch: bool = False, periodicity_weight: float = 0.0):
+               soft_pitch: bool = False, periodicity_weight: float = 0.0, mesh=None):
     """One distillation step (`distill.py:196`): the loss, its gradient and
     one update of the leaves in place.  batch: {audio16 [B, T*160],
     target24 [B, T*240], cond[, f0_bin [B, T]]}.  Returns (params,
-    optimizer, metrics), the metrics detached tensors."""
+    optimizer, metrics), the metrics detached tensors.
+
+    With a `mesh` (`parallel/mesh.py`) whose 'streams' axis has several
+    ranks, the batch is this rank's rows (`shard_tree`), the loss is the
+    whole batch's and the gradients are summed over 'streams' before the
+    update, so every rank's parameters stay the same; weights split over
+    'model' (`DTensor`s) keep their gradients on their blocks."""
+    group = dp_group(mesh)
     optimizer.zero_grad()
     loss, aux = distillation_loss(
         params, cfg, batch["audio16"], batch["target24"], batch["cond"],
         f0_bin=batch.get("f0_bin"), f0_weight=f0_weight, soft_pitch=soft_pitch,
-        periodicity_weight=periodicity_weight)
+        periodicity_weight=periodicity_weight, group=group)
     loss.backward()
+    if group is not None:
+        all_reduce_grads_(optimizer.leaves, group)
     optimizer.step()
     return params, optimizer, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}

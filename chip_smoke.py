@@ -155,14 +155,49 @@ Phases, each printing one line with its seconds:
                 signal at 4 and 8 segments against the port's
                 convert_utterance, each at atol 1e-3; audio seconds per
                 second of each, on the second of two runs.
- 17. profile -- only with `--profile DIR`: where the engine's tick time
+ 17. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
+                (parallel/mesh.py:spawn_cpu_ranks) whose ranks share the one
+                card and each compute on it, every case in one spawn
+                (parallel/checks.py), then:
+                mesh_golden: the golden run on a 2 x 1 mesh (2 streams a
+                rank), slots f32 and bf16, gathered and held to the golden
+                file as the engine phase holds it; mesh_engine: capacity
+                256 on 2 x 1 (128 streams a rank), TICKS ticks of the
+                engine phase's input and controls, gathered and held at
+                KERNEL_TOL to one process ticking each rank's 128 streams
+                (the same products; measured bitwise) and, over the first
+                MESH_EXACT_TICKS ticks, to one process at 256 (the card
+                picks its GEMM kernels by row count, so 128 and 256 rows
+                round apart, and later in the 120 ticks a few streams flip
+                a pitch bin: measured 3 of 256 f32, 48 bf16; reported, with
+                the first tick over the tolerance); each rank's
+                median and p90 tick span (CUDA events), host ms and peak
+                MiB beside the process at 256's; mesh_tp: the golden run
+                with the weights split over 'model' on 1 x 2 (the
+                upsampler's conv weights kept whole for the fused head) and
+                the train golden numbers on 1 x 2; mesh_train: the train golden numbers
+                (one distillation and one GAN step and their second steps)
+                data-parallel on 2 x 1, one golden row a rank; mesh_seqpar:
+                convert_utterance_sp on 20 s at 5 segments ((s-1)*B = 4
+                rows, 2 a rank) against the sequential conversion at 1e-3
+                and the unsharded seqpar at 1e-5, and the seqpar golden
+                file's 4 segments (3 rows: not split, JAX's rule) at 1e-3;
+                mesh_nccl: a world-size-1 NCCL group (distributed_init's
+                default backend on CUDA) and a 1 x 1 mesh in this process,
+                one tick of each configuration equal to the unsharded tick.
+                Every mesh path's ranks each launch the configuration's form
+                once a tick.  Two ranks on one card measure processes
+                overlapping on one device, not multi-GPU scaling.
+ 18. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
 drove it: the engine configurations, the morph engines, the streaming
-halves of parity, the older versions' engines and the in-process serving
-paths serve_golden, serve_pipeline and serve_ws; the phases from
-train_golden on launch neither form), the card line, and the last line
+halves of parity, the older versions' engines, the in-process serving
+paths serve_golden, serve_pipeline and serve_ws, and the mesh paths
+mesh_golden, mesh_tp, mesh_engine and mesh_nccl, summed over their ranks;
+the phases from train_golden to seqpar launch neither form), the card
+line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -370,11 +405,12 @@ def max_abs_diffs(got, want):
 
 def path_batches():
     """The batches other than KERNEL_BATCHES at which a phase launches the
-    kernel (the golden runs and the serving phases)."""
+    kernel (the golden runs, the serving phases and a mesh rank's rows)."""
     from beatrice_vst_tpu_torch import golden
 
     return sorted({golden.CAPACITY, golden.MORPH_CAPACITY, golden.SERVE_CAPACITY,
-                   SERVE_ROW0_CAPACITY, SERVE_WS_CAPACITY, SERVE_TCP_CAPACITY}
+                   SERVE_ROW0_CAPACITY, SERVE_WS_CAPACITY, SERVE_TCP_CAPACITY,
+                   golden.CAPACITY // MESH_RANKS, CAPACITY // MESH_RANKS}
                   - set(KERNEL_BATCHES))
 
 
@@ -507,15 +543,19 @@ def klatt8(device):
             bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=device))
 
 
+def stream_controls(capacity, n_speakers):
+    """Each stream's own speaker, formant, VQ neighbours and pitch shift."""
+    return [{"target_speaker": i % n_speakers, "formant_index": (i // n_speakers) % 9,
+             "vq_num_neighbors": i % 5, "pitch_shift": float((i % 7) - 3)}
+            for i in range(capacity)]
+
+
 def admit_all(engine, n_speakers):
-    """Admit every stream with its own speaker, formant, VQ neighbours and
-    pitch shift."""
-    for i in range(engine.cfg.capacity):
-        engine.admit()
-        engine.set_control(i, "target_speaker", i % n_speakers)
-        engine.set_control(i, "formant_index", (i // n_speakers) % 9)
-        engine.set_control(i, "vq_num_neighbors", i % 5)
-        engine.set_control(i, "pitch_shift", float((i % 7) - 3))
+    """Admit every stream with its `stream_controls`."""
+    for controls in stream_controls(engine.cfg.capacity, n_speakers):
+        i = engine.admit()
+        for field, value in controls.items():
+            engine.set_control(i, field, value)
 
 
 def build_engine(device, config, upsampler_kernel=True, capacity=CAPACITY, controls=True,
@@ -1785,6 +1825,240 @@ def seqpar_phase(device, card):
         segments=runs, tol=golden.F32_ATOL, kernel_launches=counts, nvidia_smi=card)
 
 
+MESH_RANKS = 2
+MESH_SEQPAR_SEGMENTS = 5  # (s - 1) * B = 4 rows: 2 a rank
+MESH_SEQPAR_TOL = 1e-5  # against the unsharded seqpar: the same operations, other batches
+MESH_CONFIGS = ("slots_f32", "slots_bf16")
+# mesh_engine's ticks held at KERNEL_TOL to one process at CAPACITY: before
+# 128- and 256-row GEMMs' roundings have flipped a stream's pitch bin
+MESH_EXACT_TICKS = 10
+# the spawned group: imports, two CUDA contexts and every case (54 s on the
+# H100's host in its first run), with the host's 2x spread between runs
+RANK_LIMIT_S = 240
+
+
+def mesh_cases(card_audio, params, bank):
+    """Every case of the mesh phases, run by one 2-rank gloo group on the
+    card (parallel/checks.py): the golden run on a 2 x 1 mesh, the engine
+    at CAPACITY on 2 x 1, the golden run with the weights split on 1 x 2,
+    the train golden numbers on 2 x 1 and on 1 x 2 (split weights), and
+    seqpar on 2 x 1."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.parallel import checks
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings
+    from beatrice_vst_tpu_torch.speakers.bank import n_speakers
+
+    rc0 = "2.0.0-rc.0"
+    gold_audio = golden.swept_sine().reshape(golden.CAPACITY, golden.TICKS, 480).transpose(1, 0, 2)
+    controls = stream_controls(CAPACITY, n_speakers(bank))
+    want = golden.load(TRAIN_GOLDEN)
+    batch = {k: want[f"batch/{k}"] for k in ("audio16", "target24", "f0_bin")}
+    settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
+    cases = []
+    for config in MESH_CONFIGS:
+        kw = ENGINE_CONFIGS[config][0]
+        gold = dict(params=params, bank=bank, audio=gold_audio, version=rc0,
+                    capacity=golden.CAPACITY, admit="golden", engine_kw=kw, keep_state=False)
+        cases.append((f"golden_{config}", checks.tick_case, dict(gold, mesh_shape=(2, 1))))
+        cases.append((f"tp_{config}", checks.tick_case,
+                      dict(gold, mesh_shape=(1, 2), model_parallel=True)))
+        cases.append((f"engine_{config}", checks.tick_case,
+                      dict(params=params, bank=bank, audio=card_audio, version=rc0,
+                           capacity=CAPACITY, admit=controls, engine_kw=kw, keep_state=False,
+                           mesh_shape=(2, 1))))
+    cases.append(("train", checks.train_golden_case,
+                  dict(params=params, bank=bank, batch=batch, mesh_shape=(2, 1))))
+    cases.append(("tp_train", checks.train_golden_case,
+                  dict(params=params, bank=bank, batch=batch, mesh_shape=(1, 2),
+                       model_parallel=True)))
+    long = golden.offline_signal(seconds=SEQPAR_SECONDS)
+    for name, audio, n in (("seqpar", long, MESH_SEQPAR_SEGMENTS),
+                           ("seqpar_golden", golden.offline_signal(), golden.SEQPAR_SEGMENTS)):
+        cases.append((name, checks.seqpar_case,
+                      dict(params=params, bank=bank, audio=audio, rate=golden.OFFLINE_RATE,
+                           n_segments=n, version=rc0, settings=settings, mesh_shape=(2, 1))))
+    return cases, controls, long, settings
+
+
+def rank_launches(label, results, form, ticks):
+    """Each rank's launches of `form` in its ticks: one per tick, none of
+    the other form.  Returns their sum."""
+    for r, res in enumerate(results):
+        want = {f: ticks if f == form else 0 for f in res["launches"]}
+        if res["launches"] != want:
+            raise AssertionError(f"{label}: rank {r} launched {res['launches']} in {ticks} "
+                                 f"ticks, expected {want}")
+    return sum(res["launches"][form] for res in results)
+
+
+def tick_stats(res):
+    """Median and p90 tick span (CUDA events), median host ms, peak MiB of a
+    tick_case run, past its first WARMUP_TICKS ticks."""
+    spans, host = res["span_ms"][WARMUP_TICKS:], res["host_ms"][WARMUP_TICKS:]
+    return {"median_tick_ms": float(np.median(spans)),
+            "p90_tick_ms": float(np.percentile(spans, 90)),
+            "median_host_ms": float(np.median(host)), "peak_mib": res["peak_mib"]}
+
+
+def mesh_phases(device, card, by_path):
+    """The mesh phases: one 2-rank gloo group on the one card runs every
+    case of `mesh_cases`; each rank computes on the card.  Then mesh_nccl
+    in this process.  Each phase adds its launches to by_path under
+    mesh_*.  Two ranks on one card measure processes overlapping on one
+    device, not multi-GPU scaling."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.parallel import checks, spawn_cpu_ranks
+    from beatrice_vst_tpu_torch.runtime.offline import convert_utterance
+    from beatrice_vst_tpu_torch.runtime.seqpar import convert_utterance_sp
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    card_audio = engine_audio(device).cpu().numpy()
+    cases, controls, long, settings = mesh_cases(card_audio, params, bank)
+    results = spawn_cpu_ranks(MESH_RANKS, checks.run_cases, device.type, cases,
+                              limit_s=RANK_LIMIT_S)
+    spawn_s = time.perf_counter() - t0
+    ref = golden.load(GOLDEN)
+
+    for config in MESH_CONFIGS:  # mesh_golden and mesh_tp
+        form = ENGINE_CONFIGS[config][1]
+        for kind, shape in (("golden", [2, 1]), ("tp", [1, 2])):
+            t = time.perf_counter()
+            runs = [res[f"{kind}_{config}"] for res in results]
+            gates = [golden_gate(f"mesh_{kind} {config} rank {r}", form, run["out"],
+                                 ref["f32"], ref["bf16"]) for r, run in enumerate(runs)]
+            by_path[form][f"mesh_{kind}_{config}"] = rank_launches(
+                f"mesh_{kind} {config}", runs, form, golden.TICKS)
+            log(f"mesh_{kind}", t, config=config, mesh=shape, ranks=MESH_RANKS,
+                rows_per_rank=[run["rows"] for run in runs],
+                launches_per_rank=[run["launches"] for run in runs],
+                golden=gates[0], ranks_equal=bool(np.array_equal(runs[0]["out"],
+                                                                 runs[1]["out"])),
+                spawn_seconds=spawn_s, nvidia_smi=card)
+
+    for config in MESH_CONFIGS:  # mesh_engine
+        t = time.perf_counter()
+        form, tol = ENGINE_CONFIGS[config][1], KERNEL_TOL[ENGINE_CONFIGS[config][1]]
+        runs = [res[f"engine_{config}"] for res in results]
+        got = runs[0]["out"]
+        kw = dict(version="2.0.0-rc.0", engine_kw=ENGINE_CONFIGS[config][0], keep_state=False,
+                  device=device)
+        single = checks.tick_case(params, bank, card_audio, capacity=CAPACITY, admit=controls,
+                                  **kw)
+        rows = CAPACITY // MESH_RANKS
+        blocks = np.concatenate(
+            [checks.tick_case(params, bank, card_audio[:, r * rows:(r + 1) * rows], capacity=rows,
+                              admit=controls[r * rows:(r + 1) * rows], **kw)["out"]
+             for r in range(MESH_RANKS)], axis=1)
+        vs_blocks = float(np.abs(got - blocks).max())
+        d = np.abs(got - single["out"])  # [ticks, streams, samples]
+        early = float(d[:MESH_EXACT_TICKS].max())
+        early_level = float(np.abs(single["out"][:MESH_EXACT_TICKS]).max())
+        per_stream, per_tick = d.max(axis=(0, 2)), d.max(axis=(1, 2))
+        over = np.flatnonzero(per_tick > tol)
+        if not np.isfinite(got).all() or not vs_blocks <= tol or not early <= tol \
+                or not early_level > 1e-3:
+            raise AssertionError(f"mesh_engine {config}: vs one process on each rank's rows "
+                                 f"{vs_blocks}; vs one process at {CAPACITY} over the first "
+                                 f"{MESH_EXACT_TICKS} ticks {early} (tol {tol}; output level "
+                                 f"{early_level})")
+        if not np.array_equal(got, runs[1]["out"]):
+            raise AssertionError(f"mesh_engine {config}: the ranks gathered other outputs")
+        by_path[form][f"mesh_engine_{config}"] = rank_launches(
+            f"mesh_engine {config}", runs, form, TICKS)
+        log("mesh_engine", t, config=config, capacity=CAPACITY, mesh=[2, 1], ticks=TICKS,
+            rows_per_rank=[run["rows"] for run in runs],
+            launches_per_rank=[run["launches"] for run in runs],
+            ranks=[tick_stats(run) for run in runs], single_process=tick_stats(single),
+            max_abs_diff_vs_rank_rows=vs_blocks,
+            vs_single_process={f"max_abs_diff_first_{MESH_EXACT_TICKS}_ticks": early,
+                               "output_max_first_ticks": early_level,
+                               "max_abs_diff": float(per_stream.max()),
+                               "first_tick_over_tol": int(over[0]) if over.size else None,
+                               "median_stream_max_abs_diff": float(np.median(per_stream)),
+                               "streams_over_tol": int((per_stream > tol).sum())},
+            tol=tol, note="two processes sharing one card: process overlap, not multi-GPU "
+            "scaling", nvidia_smi=card)
+
+    t = time.perf_counter()  # mesh_tp (the train step) and mesh_train
+    want = golden.load(TRAIN_GOLDEN)
+    for kind, shape in (("train", [2, 1]), ("tp_train", [1, 2])):
+        worst, failed = {}, []
+        for r, res in enumerate(results):
+            for key, value in res[kind].items():
+                ok, dev, bound = golden.train_gate(key, value, float(want[key]))
+                if dev > worst.get(key.split("/")[0], (0.0, ""))[0]:
+                    worst[key.split("/")[0]] = (dev, key)
+                if not ok:
+                    failed.append((r, key, value, float(want[key]), dev, bound))
+        if failed:
+            raise AssertionError(f"mesh {kind}: {len(failed)} numbers off the golden file: "
+                                 f"{failed[:8]}")
+        log("mesh_tp" if kind == "tp_train" else "mesh_train", t, mesh=shape,
+            steps="distill + gan, each with its second step", numbers=len(results[0][kind]),
+            worst=worst, loss_rtol=golden.TRAIN_LOSS_RTOL, grad_rtol=golden.TRAIN_GRAD_RTOL,
+            nvidia_smi=card)
+
+    t = time.perf_counter()  # mesh_seqpar
+    rate = golden.OFFLINE_RATE
+    sequential = convert_utterance(params, cfg, bank, long, rate, settings, device=device)
+    unsharded = convert_utterance_sp(params, cfg, bank, long, rate, settings,
+                                     n_segments=MESH_SEQPAR_SEGMENTS, device=device)
+    gold = golden.load(SEQPAR_GOLDEN)["f32"]
+    out = {}
+    for r, res in enumerate(results):
+        vs_seq = golden.deviation(res["seqpar"], sequential)
+        vs_sp = golden.deviation(res["seqpar"], unsharded)
+        vs_gold = golden.deviation(res["seqpar_golden"], gold)
+        if not (vs_seq["max"] <= golden.F32_ATOL and vs_sp["max"] <= MESH_SEQPAR_TOL
+                and vs_gold["max"] <= golden.F32_ATOL):
+            raise AssertionError(f"mesh_seqpar rank {r}: vs sequential {vs_seq}, vs "
+                                 f"unsharded {vs_sp}, golden (unsplit) {vs_gold}")
+        out[r] = {"vs_sequential": vs_seq, "vs_unsharded": vs_sp, "golden": vs_gold}
+    log("mesh_seqpar", t, mesh=[2, 1], segments=MESH_SEQPAR_SEGMENTS,
+        golden_segments=golden.SEQPAR_SEGMENTS, ranks=out,
+        tol={"sequential": golden.F32_ATOL, "unsharded": MESH_SEQPAR_TOL}, nvidia_smi=card)
+
+    mesh_nccl_phase(device, card, params, bank, controls, card_audio, by_path)
+
+
+def mesh_nccl_phase(device, card, params, bank, controls, card_audio, by_path):
+    """A world-size-1 NCCL group (distributed_init's default backend on
+    CUDA, env:// rendezvous) and a 1 x 1 mesh in this process: one tick
+    of each configuration equal to the unsharded tick, to 0.0."""
+    import torch
+    import torch.distributed as dist
+    from beatrice_vst_tpu_torch.parallel import checks, distributed_init
+
+    t0 = time.perf_counter()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0")
+    distributed_init()
+    try:
+        backend = dist.get_backend()
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)
+        out = {}
+        for config in MESH_CONFIGS:
+            form = ENGINE_CONFIGS[config][1]
+            kw = dict(params=params, bank=bank, audio=card_audio[:1], version="2.0.0-rc.0",
+                      capacity=CAPACITY, admit=controls, engine_kw=ENGINE_CONFIGS[config][0],
+                      keep_state=False, device=device)
+            sharded = checks.tick_case(mesh_shape=(1, 1), **kw)
+            plain = checks.tick_case(**kw)
+            diff = float(np.abs(sharded["out"] - plain["out"]).max())
+            if diff != 0.0:
+                raise AssertionError(f"mesh_nccl {config}: 1 x 1 mesh vs unsharded: {diff}")
+            by_path[form][f"mesh_nccl_{config}"] = rank_launches(
+                f"mesh_nccl {config}", [sharded], form, 1)
+            out[config] = {"max_abs_diff": diff, "launches": sharded["launches"]}
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl" or float(one) != 1.0:
+        raise AssertionError(f"mesh_nccl: backend {backend}, all_reduce gave {float(one)}")
+    log("mesh_nccl", t0, backend=backend, mesh=[1, 1], configs=out, nvidia_smi=card)
+
+
 def main() -> int:
     import torch
 
@@ -1841,6 +2115,7 @@ def main() -> int:
     train_phase(device, card)
     train_data_phase(device, card)
     seqpar_phase(device, card)
+    mesh_phases(device, card, by_path)
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())
         entry["launches_by_path"] = by_path[form]

@@ -13,8 +13,10 @@ and the morph golden file; serving: pipeline mode equal to plain mode one
 tick later over 50 ticks (bitwise), `reset_context` from a client thread
 while the scheduler ticks leaving the other streams bitwise unchanged,
 `ModelHost()` on the card by default, and a warm serving tick whose only
-wait is on its output copy's event.  They skip where
-torch.cuda.is_available() is false.
+wait is on its output copy's event; multi-GPU: a world-size-1 NCCL group's
+1 x 1 mesh tick equal to the unsharded tick, and two gloo ranks sharing
+the card, each ticking half the streams, against one process.  They skip
+where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
 
@@ -622,3 +624,65 @@ def test_training_on_the_card_never_launches_the_kernel(cuda_device):
     assert FU.launches == before
     for stage in p["wg"]["up"]:
         assert float(stage["conv"]["w"].grad.abs().max()) > 0
+
+
+MESH_CAPACITY = 8
+MESH_TICKS = 6
+
+
+def _mesh_tick_kwargs(config):
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+
+    _, _, params, bank = load_model_dir(MODEL_DIR)
+    rng = np.random.default_rng(3)
+    audio = (0.3 * np.sin(np.arange(MESH_TICKS * 480) * 2 * np.pi * 180 / 48000)
+             + 0.02 * rng.standard_normal((MESH_CAPACITY, MESH_TICKS * 480)))
+    audio = audio.astype(np.float32).reshape(MESH_CAPACITY, MESH_TICKS, 480).transpose(1, 0, 2)
+    return dict(params=params, bank=bank, audio=np.ascontiguousarray(audio),
+                version="2.0.0-rc.0", capacity=MESH_CAPACITY, admit="all",
+                engine_kw=CONFIGS[config], keep_state=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["slots_f32", "slots_bf16"])
+def test_nccl_mesh_tick_equals_unsharded(cuda_device, config):
+    """A world-size-1 NCCL group (distributed_init's default backend on
+    the card) and a 1 x 1 mesh: the tick equals the unsharded tick."""
+    import socket
+
+    import torch.distributed as dist
+    from beatrice_vst_tpu_torch.parallel import checks, distributed_init
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    kw = _mesh_tick_kwargs(config)
+    distributed_init(f"tcp://127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        sharded = checks.tick_case(mesh_shape=(1, 1), device=cuda_device, **kw)
+    finally:
+        dist.destroy_process_group()
+    plain = checks.tick_case(device=cuda_device, **kw)
+    np.testing.assert_array_equal(sharded["out"], plain["out"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["slots_f32", "slots_bf16"])
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, config):
+    """Two gloo ranks sharing the card, each ticking half the streams: the
+    gathered output equals the single-process tick at the kernel's
+    tolerance, and each rank launches its form once a tick."""
+    from beatrice_vst_tpu_torch.parallel import checks, spawn_cpu_ranks
+
+    kw = _mesh_tick_kwargs(config)
+    form = "bfloat16" if "compute_dtype" in CONFIGS[config] else "float32"
+    results = spawn_cpu_ranks(2, checks.run_cases, "cuda",
+                              [("tick", checks.tick_case, dict(kw, mesh_shape=(2, 1)))])
+    plain = checks.tick_case(device=cuda_device, **kw)
+    for res in results:
+        got = res["tick"]
+        assert got["rows"] == MESH_CAPACITY // 2
+        assert got["launches"] == {"float32": 0, "bfloat16": 0, form: MESH_TICKS}
+        np.testing.assert_allclose(got["out"], plain["out"], rtol=0,
+                                   atol=BF16_TOL if form == "bfloat16" else TOL)
