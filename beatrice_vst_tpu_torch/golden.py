@@ -205,6 +205,62 @@ def run(engine, to_numpy=np.asarray, frames: int = TICKS) -> np.ndarray:
                      for k in range(frames * 480 // n)])
 
 
+EDITS_CAPACITY = 4
+EDITS_TICKS = 32
+EDITS_SEED = 3
+
+
+def run_edits(engine, to_numpy=np.asarray, reset_context=None, keep=None) -> np.ndarray:
+    """EDITS_TICKS ticks of `swept_sine` through a fresh engine of capacity
+    EDITS_CAPACITY (either package's `StreamEngine`, any frames_per_tick),
+    with the stream table and the controls edited between ticks: gain and
+    pitch edits, an admit, two morphs, an evict and a re-admit,
+    `reset_context` twice and `recover()`.  reset_context(i) resets stream
+    i's context (default: the port's `engine.reset_context`); `keep`, a
+    list, receives every tick's output as `tick` returned it.  Returns
+    [ticks, EDITS_CAPACITY, frames_per_tick * 480]."""
+    reset_context = reset_context or engine.reset_context
+    n = engine.cfg.frames_per_tick * 480
+    audio = swept_sine(EDITS_SEED, EDITS_CAPACITY, EDITS_TICKS * n // 480)
+
+    def controls(i, speaker, formant, vq, shift):
+        engine.set_control(i, "target_speaker", np.int32(speaker))
+        engine.set_control(i, "formant_index", np.int32(formant))
+        engine.set_control(i, "vq_num_neighbors", np.int32(vq))
+        engine.set_control(i, "pitch_shift", np.float32(shift))
+
+    def admit(i, *values):
+        if engine.admit() != i:
+            raise ValueError("run_edits needs a fresh engine")
+        controls(i, *values)
+
+    for i in range(3):
+        admit(i, *CONTROLS[i])
+    events = {
+        3: lambda: (engine.set_control(1, "pitch_shift", np.float32(3.0)),
+                    engine.set_control(0, "output_gain_db", np.float32(-6.0))),
+        5: lambda: admit(3, *CONTROLS[3]),
+        7: lambda: set_morph(engine, 2, *morph_controls(MORPH_WEIGHTS[2])),
+        10: lambda: engine.evict(1),
+        12: lambda: admit(1, 6, 5, 2, -1.0),
+        14: lambda: reset_context(0),
+        17: lambda: set_morph(engine, 3, *morph_controls(MORPH_WEIGHTS[1])),
+        20: engine.recover,
+        23: lambda: engine.set_control(2, "target_speaker", np.int32(5)),
+        26: lambda: (engine.set_control(3, "input_gain_db", np.float32(4.0)),
+                     reset_context(1)),
+    }
+    out = []
+    for k in range(EDITS_TICKS):
+        if k in events:
+            events[k]()
+        y = engine.tick(audio[:, n * k:n * (k + 1)])
+        if keep is not None:
+            keep.append(y)
+        out.append(to_numpy(y))
+    return np.stack(out)
+
+
 def load(path) -> dict:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}

@@ -25,11 +25,15 @@ kernel's `compute_dtype` (`pallas_upsampler.py:204`):
 the form of h's dtype (built with `nvcc`, loaded with `ctypes`) or
 raises: f32 `csrc/fused_upsampler.cu`, bf16 `csrc/fused_upsampler_bf16.cu`
 (tensor cores).  `launches` and `launches_bf16` count the two forms'
-kernel launches and nothing else.  Two earlier kernels stay as yardsticks
-that `chip_smoke.py` times the forms against, reachable only through
-`_fused_upsample(..., source=...)` and counted in `yardstick_launches`:
-the f32 form's first version (`csrc/fused_upsampler_v1.cu`) and the bf16
-form that does its arithmetic as f32 FFMA (`csrc/fused_upsampler.cu`).
+kernel launches on the card and nothing else.  A call made while a CUDA
+graph is captured launches nothing: inside `recording()` it is counted
+for that graph, and the graph's owner adds it to the counts once per
+replay (`count_replay`); outside, the wrapper raises.  Two earlier
+kernels stay as yardsticks that `chip_smoke.py` times the forms against,
+reachable only through `_fused_upsample(..., source=...)` and counted in
+`yardstick_launches`: the f32 form's first version
+(`csrc/fused_upsampler_v1.cu`) and the bf16 form that does its
+arithmetic as f32 FFMA (`csrc/fused_upsampler.cu`).
 
 Bound on an H100 SXM (`bound_ms`; the source note in the .cu has the
 count): 3.66 MFLOP per stream, so 0.94 GFLOP at B=256.  f32: over 67
@@ -44,9 +48,11 @@ it moves 17.8 KB per stream plus 1.1 MB of weights, 5.66 MB at B=256,
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -72,6 +78,9 @@ launches = 0
 launches_bf16 = 0
 # launches of the yardsticks, by (source, dtype)
 yardstick_launches = collections.Counter()
+# the launches recorded into the CUDA graph being captured on this thread
+# (`recording`)
+_capture = threading.local()
 
 
 def _stage_dims():
@@ -365,7 +374,6 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
     """`fused_upsample` with the kernel of csrc/<source>.cu: by default the
     form of h's dtype, else its yardstick (`YARDSTICKS`), for timing
     against."""
-    global launches, launches_bf16
     got = _check(up_params, final_params, h, states, src_feats)
     if h.device.type == "cpu":
         return fused_upsample_reference(up_params, final_params, h, states, src_feats)
@@ -376,6 +384,12 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
         raise RuntimeError("the fused upsampler kernel has no backward: run the plain head "
                            "(WaveformGeneratorConfig(upsampler_kernel=False)) under autograd")
     source = source or FORMS[h.dtype]
+    recorded = None
+    if torch.cuda.is_current_stream_capturing():
+        recorded = getattr(_capture, "counts", None)
+        if recorded is None:
+            raise RuntimeError("fused_upsample captured into a CUDA graph outside "
+                               "fused_upsampler.recording(): its replays would go uncounted")
     launch = _launcher(source, h.dtype)
     b = h.shape[0]
     audio = torch.empty((b, OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
@@ -386,10 +400,39 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
         err = launch(ctypes.addressof(args), b, stream)
     if err != 0:
         raise RuntimeError(f"fused_upsampler kernel launch failed: CUDA error {err}")
-    if source != FORMS[h.dtype]:
-        yardstick_launches[source, str(h.dtype)] += 1
-    elif h.dtype == torch.float32:
-        launches += 1
+    if recorded is not None:
+        recorded[source, h.dtype] += 1
     else:
-        launches_bf16 += 1
+        _count(source, h.dtype, 1)
     return audio, new_states
+
+
+def _count(source, dtype, n):
+    """Add n launches of csrc/<source>.cu's kernel for `dtype` to its count."""
+    global launches, launches_bf16
+    if source != FORMS[dtype]:
+        yardstick_launches[source, str(dtype)] += n
+    elif dtype == torch.float32:
+        launches += n
+    else:
+        launches_bf16 += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Around the capture of a CUDA graph on this thread: yields a Counter
+    of the kernel launches the graph records, by (source, dtype), which
+    go to no count (capture launches nothing).  Pass it to `count_replay`
+    at each replay."""
+    _capture.counts = counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def count_replay(recorded) -> None:
+    """Count one replay of a graph that recorded `recorded` (`recording`):
+    each of its kernel launches is a launch on the card."""
+    for (source, dtype), n in recorded.items():
+        _count(source, dtype, n)

@@ -107,7 +107,9 @@ def tick_case(params, bank, audio, version: str, capacity: int, mesh_shape=None,
         state = init_engine_state(cfg, dev)
         state["controls"]["active"][:] = True
     else:
-        eng = StreamEngine(cfg, params, bank, device=dev)
+        # jit=False: only the stream table and the state are borrowed; the
+        # ticks below are the functional engine_tick
+        eng = StreamEngine(cfg, params, bank, device=dev, jit=False)
         if admit == "golden":
             from .. import golden
 

@@ -43,7 +43,9 @@ def dryrun_rank(rank, n_devices: int, device="cuda") -> dict:
 
     # the serving configuration's tick under the same mesh
     ecfg = EngineConfig.realtime(b, V20RC0, compute_dtype="bfloat16")
-    eng = StreamEngine(ecfg, params, bank, device=dev)
+    # jit=False: only the stream table and the state are borrowed; the tick
+    # below is the functional one on this rank's rows
+    eng = StreamEngine(ecfg, params, bank, device=dev, jit=False)
     for _ in range(b):
         eng.admit()
     eng.flush_controls()

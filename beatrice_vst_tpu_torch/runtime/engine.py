@@ -43,6 +43,17 @@ Control edits are staged on the host and applied between ticks; the
 engine updates its control and state tensors in place there (the JAX
 engine rebuilds them functionally), while `engine_tick` itself returns a
 new state dict and leaves its input state untouched.
+
+`StreamEngine(..., jit=True)` (the default, as in the JAX engine) ticks
+with donated state, the counterpart of the JAX engine's
+`jax.jit(engine_tick, donate_argnums=(2,))`: `donated_tick` writes the new
+state into the tensors it was given.  On CUDA the engine captures one
+donated tick in a `torch.cuda.CUDAGraph` when it is built, over static
+tensors (its state, an input and an output), and each tick replays it:
+three host launches (copy in, replay, copy out) in place of about a
+thousand.  On the CPU, where CUDA graphs do not exist, it runs the
+donated tick op by op.  `jit=False` ticks `engine_tick` op by op and
+rebinds the state, the yardstick of both.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ from ..constants import (COMMON_HOP_LENGTH, MAX_N_SPEAKERS, SPH_AVG_MAX_N_SPEAKE
                          VersionSpec)
 from ..device import resolve_device
 from ..errors import BeatriceError, ErrorCode
-from ..models import chain, waveform_generator
+from ..models import chain, fused_upsampler, waveform_generator
 from ..models.chain import VoiceConverterConfig
 from ..models.io import params_from_numpy
 from ..models.layers import quantize_rows
@@ -71,6 +82,9 @@ from .controls import CONTROL_FIELDS, ControlStage, init_controls
 from .metrics import EngineMetrics
 
 KV_CACHE_MODES = ("slots", "per_stream")
+# donated ticks run on a scratch copy of the state before a CUDA graph is
+# captured: they build every constant the tick makes at its first call
+GRAPH_WARMUP_TICKS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +321,62 @@ def engine_tick(params, bank, state, audio48, *, cfg: EngineConfig):
     }
 
 
+def _changed_leaves(old, new, dst, src) -> None:
+    """Append to dst / src each leaf of `old` and the leaf of `new` that
+    replaces it, where the tick made a new tensor; subtrees and leaves it
+    passed through (the same objects) are skipped."""
+    if new is old:
+        return
+    if isinstance(old, dict):
+        if old.keys() != new.keys():
+            raise ValueError(f"the tick changed the state's keys: {sorted(old)} -> {sorted(new)}")
+        for k in old:
+            _changed_leaves(old[k], new[k], dst, src)
+    elif isinstance(old, list):
+        if len(old) != len(new):
+            raise ValueError(f"the tick changed a state list's length: {len(old)} -> {len(new)}")
+        for o, n in zip(old, new):
+            _changed_leaves(o, n, dst, src)
+    else:
+        if new.shape != old.shape or new.dtype != old.dtype:
+            raise ValueError(f"the tick changed a state leaf: {tuple(old.shape)} {old.dtype} -> "
+                             f"{tuple(new.shape)} {new.dtype}")
+        dst.append(old)
+        src.append(new)
+
+
+def donated_tick(params, bank, state, audio48, *, cfg: EngineConfig) -> torch.Tensor:
+    """`engine_tick` with donated state (the JAX engine's `jax.jit(tick,
+    donate_argnums=(2,))`): the new state is written into `state`'s own
+    tensors, which stay the same objects, and the output is returned.
+    Only the leaves the tick replaced are copied: the K/V cache, the slot
+    bank and the controls pass through untouched.  A new leaf that shares
+    memory with a leaf being written is copied aside first, so no copy
+    reads what another has overwritten."""
+    out, new = engine_tick(params, bank, state, audio48, cfg=cfg)
+    dst, src = [], []
+    _changed_leaves(state, new, dst, src)
+    written = {t.untyped_storage().data_ptr() for t in dst}
+    src = [t.clone() if t.untyped_storage().data_ptr() in written else t for t in src]
+    torch._foreach_copy_(dst, src)
+    return out
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _copy_tree_(dst, src) -> None:
+    """Copy every leaf of `src` into the same leaf of `dst`, in place."""
+    d, s = [], []
+    _changed_leaves(dst, src, d, s)
+    torch._foreach_copy_(d, s)
+
+
 def apply_control_updates(state, updates) -> None:
     """Write staged control edits {field: (idx [K], values [K])} into the
     control tensors, in place."""
@@ -447,10 +517,16 @@ class StreamEngine:
     Typical loop, one tick per T * 10 ms:
         out48 = engine.tick(in48)   # [capacity, T*480] -> [capacity, T*480]
     (tick flushes staged control edits first).
+
+    jit=True (the default) ticks with donated state, on CUDA by replaying
+    a CUDA graph captured here (see the module docstring); jit=False runs
+    `engine_tick` op by op.  With jit=True `self.state`'s tensors are the
+    graph's and are only ever updated in place.
     """
 
-    def __init__(self, cfg: EngineConfig, params, bank, device="cuda"):
+    def __init__(self, cfg: EngineConfig, params, bank, device="cuda", jit: bool = True):
         self.device = resolve_device(device)
+        self.jit = jit
         self.cfg = cfg
         self.params = cast_params(params_from_numpy(params, self.device), cfg.dtype)
         self.bank = prepare_bank(cfg, self.params, bank, self.device)
@@ -481,6 +557,42 @@ class StreamEngine:
         self._applied: dict[int, dict[str, np.ndarray]] = {}
         self.metrics = EngineMetrics()
         self.counters = {"admitted": 0, "evicted": 0}
+        self._graph = None
+        if jit and self.device.type == "cuda":
+            self._capture()
+
+    def _capture(self) -> None:
+        """Capture one donated tick in a CUDA graph over `self.state`, a
+        static input and the output it returns.  GRAPH_WARMUP_TICKS donated
+        ticks first run on a side stream on a scratch copy of the state
+        (ticking the live state would advance every stream), counted in
+        `counters["graph_warmup_ticks"]`: they build the tick's lazily made
+        constants, whose copies from the host could not be captured.
+        thread_local capture leaves other threads' CUDA work alone: a
+        ModelHost builds a new engine while the old one ticks.  A failed
+        warm-up or capture raises.  `capture_ms` is the host's time for
+        all of it, the graph's instantiation included."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device):
+            self._static_in = torch.zeros((cfg.capacity, cfg.samples_per_tick),
+                                          device=self.device)
+            scratch = _clone_tree(self.state)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP_TICKS):
+                    donated_tick(self.params, self.bank, scratch, self._static_in, cfg=cfg)
+            torch.cuda.current_stream().wait_stream(side)
+            del scratch
+            self.counters["graph_warmup_ticks"] = GRAPH_WARMUP_TICKS
+            graph = torch.cuda.CUDAGraph()
+            with fused_upsampler.recording() as recorded:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    self._static_out = donated_tick(self.params, self.bank, self.state,
+                                                    self._static_in, cfg=cfg)
+        self._graph, self._recorded = graph, dict(recorded)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     # ---- stream table ----
 
@@ -630,8 +742,13 @@ class StreamEngine:
         replayed in the order first set, and their morph and K/V
         conditioning refreshed at the next flush.  Streaming contexts
         restart from zero, as the reference's ResetContext does.  Returns
-        the re-activated slots."""
-        self.state = init_engine_state(self.cfg, self.device)
+        the re-activated slots.  With jit=True the fresh state is copied
+        into the state's own tensors (a captured graph reads them)."""
+        fresh = init_engine_state(self.cfg, self.device)
+        if self.jit:
+            _copy_tree_(self.state, fresh)
+        else:
+            self.state = fresh
         self.stage = ControlStage()
         for pending in (self._pending_reset, self._context_reset, self._morph_dirty,
                         self._kv_dirty, self._slot_dirty):
@@ -653,14 +770,23 @@ class StreamEngine:
 
     def tick(self, audio48_in) -> torch.Tensor:
         """audio48_in: [capacity, T*480] (numpy or tensor) -> [capacity,
-        T*480] on the engine's device."""
+        T*480] on the engine's device, a new tensor each tick."""
         x = torch.as_tensor(audio48_in, dtype=torch.float32, device=self.device)
         expect = (self.cfg.capacity, self.cfg.samples_per_tick)
         if tuple(x.shape) != expect:
             raise ValueError(f"tick input shape {tuple(x.shape)}, expected {expect}")
         self.flush_controls()
         t0 = time.perf_counter()
-        out, self.state = engine_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
+        if self._graph is not None:
+            self._static_in.copy_(x)
+            self._graph.replay()
+            fused_upsampler.count_replay(self._recorded)
+            # the graph's output is overwritten by the next replay
+            out = self._static_out.clone()
+        elif self.jit:
+            out = donated_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
+        else:
+            out, self.state = engine_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
         self.metrics.record_tick(time.perf_counter() - t0, self.n_active,
                                  self.cfg.frames_per_tick)
         return out

@@ -27,7 +27,11 @@ the event recorded behind its last copy to the device has completed; two
 pinned output buffers alternate, so the copy of tick t never overwrites
 the rows of tick t-1 before they are scattered.  The host waits for the
 device only on the output copy's event.  On the CPU (device="cpu") the
-same code runs with ordinary tensors and no events.
+same code runs with ordinary tensors and no events.  With a graph engine
+(`StreamEngine(jit=True)` on CUDA) the tick copies the device input into
+the graph's static input, replays and returns a fresh copy of the graph's
+output, all on the scheduler's stream behind the copy from the pinned
+buffer, so each tick's fetch reads that tick's own output.
 """
 
 from __future__ import annotations

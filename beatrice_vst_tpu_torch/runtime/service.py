@@ -16,8 +16,10 @@ in-flight audio during the swap is dropped (silence), matching the
 reference's behavior.  The new engine is built while the old one still
 ticks, so on the card both engines' memory is resident for that moment.
 
-The port's ModelHost takes a `device` (default "cuda"; "cpu" only when
-asked) where the JAX one takes a `jit` flag, and hands it to each
+The port's ModelHost takes the JAX one's `jit` flag (default True: each
+engine ticks with donated state, on CUDA by replaying the CUDA graph it
+captures in `load_model`, off the scheduler's tick) and a `device`
+(default "cuda"; "cpu" only when asked), and hands both to each
 StreamEngine it builds.
 """
 
@@ -74,11 +76,12 @@ class ClientSession:
 
 class ModelHost:
     def __init__(self, capacity: int, compute_dtype: str | None = None,
-                 realtime: bool = True, device="cuda",
-                 frames_per_tick: int = 1, pipeline: bool = False):
+                 realtime: bool = True, jit: bool = True,
+                 frames_per_tick: int = 1, pipeline: bool = False, device="cuda"):
         self.capacity = capacity
         self.compute_dtype = compute_dtype
         self.realtime = realtime
+        self.jit = jit
         self.device = resolve_device(device)
         # frames_per_tick > 1 trades latency for per-tick host work: each
         # scheduler tick moves frames_per_tick * 10 ms of audio.
@@ -144,7 +147,7 @@ class ModelHost:
             compute_dtype=self.compute_dtype,
             frames_per_tick=self.frames_per_tick,
         )
-        new_engine = StreamEngine(cfg, params, bank, device=self.device)
+        new_engine = StreamEngine(cfg, params, bank, device=self.device, jit=self.jit)
         new_server = StreamingServer(new_engine, realtime=self.realtime,
                                      pipeline=self.pipeline)
         new_server.on_recover(self._replay_all_sessions)

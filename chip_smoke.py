@@ -30,7 +30,20 @@ Phases, each printing one line with its seconds:
                 phases below launch it at (4, 6, 8 and 64: the golden runs
                 and the serving phases; all but 64 are partial tiles of 16
                 streams).
-  4. engine  -- one line per configuration (ENGINE_CONFIGS: per-stream f32;
+  4. graph   -- one line per configuration: the compiled tick (StreamEngine's
+                default jit=True, one CUDA graph replayed per tick) against
+                the eager tick (jit=False) at capacity 256, T = 1, TICKS
+                ticks of the same audio in turns, each tick's outputs within
+                1e-6 (0 expected), one launch of the form per tick of each
+                (replays counted), median and p90 span, host ms per tick,
+                the capture's host ms, each engine's peak MiB while built.
+                After every timed engine phase, graph_profile: device
+                kernels and host launch calls per tick of each under
+                torch.profiler.  Every phase below ticks through the graph
+                unless it says otherwise; an engine's GRAPH_WARMUP_TICKS
+                warm-up ticks launch the form once each, and the serving
+                checks count them.
+  5. engine  -- one line per configuration (ENGINE_CONFIGS: per-stream f32;
                 the JAX default, slot bank and shared-bank VQ in f32; and
                 bf16 with the int8 slot bank and codebook): the port's
                 StreamEngine at capacity 256 on the card with the klatt8
@@ -45,7 +58,7 @@ Phases, each printing one line with its seconds:
                 golden.py) held to the JAX engine's output in
                 tests/data/torch_engine_golden.npz: f32 at atol 1e-3, bf16
                 by the envelope.
-  5. morph   -- one line per configuration: the engine at capacity 256 with
+  6. morph   -- one line per configuration: the engine at capacity 256 with
                 every odd stream morphing (target 8, its own weights over
                 klatt8's 8 speakers from a numpy seed, pruned on the card
                 by ops/morph; in slots mode 16 streams lease the 16 morph
@@ -66,29 +79,30 @@ Phases, each printing one line with its seconds:
                 direct ticks timed again after the profiler ran; and
                 morph_offline: convert_utterance with morph weights against
                 the golden file at 1e-3.
-  6. parity  -- the port's run_parity (beatrice_vst_tpu_torch/parity.py) on
+  7. parity  -- the port's run_parity (beatrice_vst_tpu_torch/parity.py) on
                 klatt8, slots f32, capacity 256: one tick of 25 frames
                 (the stage loop) against 25 real-time ticks (the f32
                 kernel), max |d| <= 1e-3, the f32 kernel launched 25
                 times in the streaming half and never in the chunk tick;
                 each half's span per 10 ms of audio, host ms and peak
                 memory, run twice (the first warms up).  Then the engine
-                at frames_per_tick = 25: CHUNK_TICKS ticks with CUDA
-                events (median and p90 tick, host ms per tick), and a few
-                ticks under torch.profiler (device launches and
-                device-busy ms per tick).
-  7. offline -- runtime/offline.py:convert_utterance on klatt8 (f32, chunks
+                at frames_per_tick = 25, graph and eager in turns:
+                CHUNK_TICKS ticks with CUDA events (each tick's outputs
+                within 1e-6; median and p90 tick, host ms per tick), and a
+                few ticks of each under torch.profiler (device launches,
+                host launch calls and device-busy ms per tick).
+  8. offline -- runtime/offline.py:convert_utterance on klatt8 (f32, chunks
                 of 64 frames) of golden.offline_signal (1.5 s at 44.1 kHz
                 in and out) held to tests/data/torch_offline_golden.npz
                 (the JAX package's output) at atol 1e-3; audio seconds
                 converted per second, on the second of two runs.
-  8. versions -- 2.0.0-alpha.2 and 2.0.0-beta.1 on random parameters and
+  9. versions -- 2.0.0-alpha.2 and 2.0.0-beta.1 on random parameters and
                 banks from the port's chain.init and random_bank at fixed
                 seeds, capacity 256: the kernel engine against the
                 plain-upsampler engine over 20 ticks at 1e-4, the f32 form
                 launched once per tick; then run_parity at 25 frames at
                 1e-3.
-  9. serve_golden -- the port's ModelHost(capacity=4, realtime=False) on
+ 10. serve_golden -- the port's ModelHost(capacity=4, realtime=False) on
                 klatt8 through the serving scenario of golden.run_serve
                 (four sessions at 48, 44.1, 16 and 32 kHz in odd push
                 sizes, voices, shifts, a two-voice morph set through the
@@ -97,10 +111,10 @@ Phases, each printing one line with its seconds:
                 every pull within atol 1e-3 of tests/data/
                 torch_serve_golden.npz (the JAX ModelHost's run), the f32
                 form launched once per tick, no recovery, no last_error.
- 10. serve_pipeline -- the same with pipeline=True: each pull equal to
+ 11. serve_pipeline -- the same with pipeline=True: each pull equal to
                 serve_golden's one tick earlier (max |d| <= 1e-6); then
                 pipeline mode with only row 0 live at capacity 8.
- 11. serve_tcp -- `python -m beatrice_vst_tpu_torch.cli serve --model
+ 12. serve_tcp -- `python -m beatrice_vst_tpu_torch.cli serve --model
                 models_demo/klatt8 --capacity 64` in a subprocess, in f32
                 and with --dtype bfloat16: 8 VCClients on their own threads
                 at 48, 44.1 and 16 kHz, each with a voice and a pitch shift
@@ -117,7 +131,7 @@ Phases, each printing one line with its seconds:
                 before the clients come), ticks per second while the clients run (100 is real
                 time), underruns and drops, each client's time to first
                 audio and share of its audio returned.
- 12. serve_ws -- an in-process WSServer (port 0) over a realtime ModelHost
+ 13. serve_ws -- an in-process WSServer (port 0) over a realtime ModelHost
                 on klatt8 with one WSClient: a round trip, a model swap to
                 models_demo/klatt8_r6 through set_parameter("model", ...),
                 the controls replayed into the new engine equal to those
@@ -125,7 +139,7 @@ Phases, each printing one line with its seconds:
                 the swap; the f32 form's launches equal to both engines'
                 ticks, no recovery, no last_error, the scheduler alive
                 before stop().
- 13. train_golden -- one distillation step and one GAN step (and each
+ 14. train_golden -- one distillation step and one GAN step (and each
                 one's second step, after the update) on klatt8 at full
                 width, f32, TF32 off, on the batch stored in
                 tests/data/torch_train_golden.npz with the critics of
@@ -135,7 +149,7 @@ Phases, each printing one line with its seconds:
                 exact arithmetic, below 1e-6; the final conv's and the
                 PCD's first bias at 3e-2); the fused upsampler never
                 launched.
- 14. train   -- `train` and `train_gan` on klatt8 at the CLI's defaults
+ 15. train   -- `train` and `train_gan` on klatt8 at the CLI's defaults
                 (batch 8, 32 frames), 30 steps each on one batch from
                 make_teacher_batcher: the loss finite and lower at the end
                 than at step 0; steps and audio seconds per second, peak
@@ -144,18 +158,18 @@ Phases, each printing one line with its seconds:
                 run's steps 15-29 within 1e-6 (deterministic algorithms on,
                 cuBLAS with a fixed workspace); the fused upsampler never
                 launched.
- 15. train_data -- a small parallel corpus from the port's synthesis.py
+ 16. train_data -- a small parallel corpus from the port's synthesis.py
                 (as scripts/make_corpus.py lays it out), PairDataset and one
                 batch of make_pair_batcher, then `python -m
                 beatrice_vst_tpu_torch.cli train --data` for 10 steps in a
                 subprocess: exit 0 and a weights.npz with klatt8's tree.
- 16. seqpar  -- runtime/seqpar.py:convert_utterance_sp on klatt8: the golden
+ 17. seqpar  -- runtime/seqpar.py:convert_utterance_sp on klatt8: the golden
                 signal at 4 segments against tests/data/
                 torch_seqpar_golden.npz (the JAX package's) and a 20 s
                 signal at 4 and 8 segments against the port's
                 convert_utterance, each at atol 1e-3; audio seconds per
                 second of each, on the second of two runs.
- 17. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
+ 18. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
                 (parallel/mesh.py:spawn_cpu_ranks) whose ranks share the one
                 card and each compute on it, every case in one spawn
                 (parallel/checks.py), then:
@@ -188,11 +202,12 @@ Phases, each printing one line with its seconds:
                 Every mesh path's ranks each launch the configuration's form
                 once a tick.  Two ranks on one card measure processes
                 overlapping on one device, not multi-GPU scaling.
- 18. profile -- only with `--profile DIR`: where the engine's tick time
+ 19. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
-drove it: the engine configurations, the morph engines, the streaming
+drove it, a graph's replays included: the graph phases (eager and graph
+engines), the engine configurations, the morph engines, the streaming
 halves of parity, the older versions' engines, the in-process serving
 paths serve_golden, serve_pipeline and serve_ws, and the mesh paths
 mesh_golden, mesh_tp, mesh_engine and mesh_nccl, summed over their ranks;
@@ -269,6 +284,11 @@ MORPH_GOLDEN = os.path.join(HERE, "tests", "data", "torch_morph_golden.npz")
 SERVE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_serve_golden.npz")
 SWAP_MODEL = os.path.join(HERE, "models_demo", "klatt8_r6", "config.toml")
 PIPELINE_TOL = 1e-6  # the same device and operations, one tick later
+# the graph tick against the eager tick: the same kernels on the same
+# values (0 expected)
+GRAPH_TOL = 1e-6
+# the CUDA API calls that put work on a stream
+HOST_LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
 SERVE_TCP_CAPACITY = 64
 SERVE_TCP_CLIENTS = 8
 SERVE_TCP_RATES = (48000, 44100, 16000)
@@ -559,16 +579,17 @@ def admit_all(engine, n_speakers):
 
 
 def build_engine(device, config, upsampler_kernel=True, capacity=CAPACITY, controls=True,
-                 frames_per_tick=1):
+                 frames_per_tick=1, jit=True):
     """The port's StreamEngine in the named configuration on the klatt8
-    weights; with `controls`, every stream admitted by `admit_all`."""
+    weights (jit=True: the graph tick; False: eager); with `controls`,
+    every stream admitted by `admit_all`."""
     from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
     from beatrice_vst_tpu_torch.speakers import bank as bank_mod
 
     params, bank = klatt8(device)
     cfg = EngineConfig.realtime(capacity, upsampler_kernel=upsampler_kernel,
                                 frames_per_tick=frames_per_tick, **ENGINE_CONFIGS[config][0])
-    engine = StreamEngine(cfg, params, bank, device=device)
+    engine = StreamEngine(cfg, params, bank, device=device, jit=jit)
     if controls:
         admit_all(engine, bank_mod.n_speakers(bank))
     return engine
@@ -706,6 +727,104 @@ def golden_check(device, config):
     return golden_gate(config, ENGINE_CONFIGS[config][1], got, ref["f32"], ref["bf16"])
 
 
+def paired_ticks(engines, audio, ticks):
+    """`ticks` ticks of audio through the named engines in turns (the
+    order reversed every other tick), each tick after a synchronise and
+    between CUDA events, so that its span is its own (a host-bound eager
+    tick enqueued behind a graph tick would otherwise start its span only
+    when the graph's work ended): ({name: span ms per tick}, {name: host
+    ms per tick}, the largest |d| between the first two engines' outputs
+    of a tick, whether every output was finite, the quietest tick's
+    loudest sample)."""
+    import torch
+
+    names = list(engines)
+    spans, host = {n: [] for n in names}, {n: [] for n in names}
+    diffs, finite, peaks = [], [], []
+    for k in range(ticks):
+        outs = {}
+        for name in names if k % 2 == 0 else names[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            t = time.perf_counter()
+            outs[name] = engines[name].tick(audio[k])
+            host[name].append((time.perf_counter() - t) * 1e3)
+            end.record()
+            spans[name].append((start, end))
+        a, b = outs[names[0]], outs[names[1]]
+        diffs.append((a - b).abs().max())
+        finite.append(torch.isfinite(a).all() & torch.isfinite(b).all())
+        peaks.append(a.abs().max())
+    torch.cuda.synchronize()
+    return ({n: [s.elapsed_time(e) for s, e in spans[n]] for n in names}, host,
+            float(torch.stack(diffs).max()), bool(torch.stack(finite).all()),
+            float(torch.stack(peaks).min()))
+
+
+def tick_stats_ms(spans, host, skip):
+    """Median and p90 span and median host ms past the first `skip` ticks."""
+    return {"median_tick_ms": float(np.median(spans[skip:])),
+            "p90_tick_ms": float(np.percentile(spans[skip:], 90)),
+            "median_host_ms": float(np.median(host[skip:]))}
+
+
+def graph_phase(device, config, card):
+    """The compiled tick against the eager one in one configuration at
+    capacity 256, T = 1: an eager engine (jit=False) and a graph engine
+    (jit=True, the default) with the same controls, TICKS ticks of the
+    same audio in turns, with the launch counts set to 0 just before and
+    read just after (one launch of the form per tick each).  Gate: every
+    tick's outputs within GRAPH_TOL.  Reported: median and p90 span (CUDA
+    events) and host ms per tick of each, the capture's host ms, and each
+    engine's peak MiB while it was built (the graph's pool included)
+    above the memory live before it.  Returns the form's launches and the
+    engines, for graph_profile_phase."""
+    import torch
+
+    t0 = time.perf_counter()
+    form = ENGINE_CONFIGS[config][1]
+    audio = engine_audio(device)
+    engines, build_mib = {}, {}
+    for name, jit in (("eager", False), ("graph", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        engines[name] = build_engine(device, config, jit=jit)
+        engines[name].flush_controls()
+        torch.cuda.synchronize()
+        build_mib[name] = (torch.cuda.max_memory_allocated() - live) / 2**20
+    reset_launch_counts()
+    spans, host, diff, finite, quietest = paired_ticks(engines, audio, TICKS)
+    counts = launch_counts()
+    if counts[form] != 2 * TICKS or sum(counts.values()) != 2 * TICKS:
+        raise AssertionError(f"graph {config}: kernel launches {counts} in {TICKS} ticks of "
+                             f"each engine, expected {2 * TICKS} of the {form} form only")
+    if not finite or quietest <= 1e-3:
+        raise AssertionError(f"graph {config}: output not finite or silent ({quietest})")
+    if not diff <= GRAPH_TOL:
+        raise AssertionError(f"graph {config}: graph vs eager tick: max|d| {diff} > {GRAPH_TOL}")
+    log("graph", t0, config=config, kernel_form=form, capacity=CAPACITY, frames_per_tick=1,
+        ticks=TICKS, launches=counts, max_abs_diff_graph_vs_eager=diff, tol=GRAPH_TOL,
+        **{name: {**tick_stats_ms(spans[name], host[name], WARMUP_TICKS),
+                  "build_peak_mib": build_mib[name]} for name in engines},
+        capture_ms=engines["graph"].capture_ms,
+        graph_warmup_ticks=engines["graph"].counters["graph_warmup_ticks"], nvidia_smi=card)
+    return counts[form], engines
+
+
+def graph_profile_phase(device, runs, card):
+    """For each configuration's eager and graph engines of graph_phase,
+    after every timed phase of the engine: device kernels and host launch
+    calls per tick under torch.profiler (tick_launches)."""
+    audio = engine_audio(device)
+    for config, engines in runs.items():
+        t0 = time.perf_counter()
+        log("graph_profile", t0, config=config, profiled_ticks=MORPH_PROFILE_TICKS,
+            **{name: tick_launches(e, audio[TICKS - MORPH_PROFILE_TICKS:], MORPH_PROFILE_TICKS)
+               for name, e in engines.items()}, nvidia_smi=card)
+
+
 def engine_phase(device, config):
     """One configuration at capacity 256: TICKS ticks with the launch
     counts set to 0 just before and read just after; returns the launches
@@ -744,7 +863,7 @@ def engine_phase(device, config):
     if not np.isfinite(diff) or diff > tol:
         raise AssertionError(f"{config}: kernel engine vs plain engine: max|d| {diff} > {tol}")
     log("engine", t0, config=config, kernel_form=form, capacity=CAPACITY, ticks=TICKS,
-        launches=counts, median_tick_ms=median_tick,
+        jit=engine.jit, launches=counts, median_tick_ms=median_tick,
         p90_tick_ms=float(np.percentile(times, 90)),
         median_host_ms=float(np.median(host_ms[WARMUP_TICKS:])),
         implied_streams_per_10ms=CAPACITY * 10.0 / median_tick,
@@ -787,48 +906,55 @@ def parity_phase(device):
 
 
 def chunk_engine(device):
-    """The engine at frames_per_tick = 25, slots f32, capacity 256:
-    CHUNK_TICKS ticks after 2 of warm-up, each between CUDA events; then
-    CHUNK_PROFILE_TICKS ticks under torch.profiler.  Every output finite
-    and not silent; the kernel never launched (the chunk head is the
-    stage loop)."""
+    """The engine at frames_per_tick = 25, slots f32, capacity 256, graph
+    and eager (jit=False) in turns on the same audio: CHUNK_TICKS ticks
+    after 2 of warm-up, each between CUDA events, every tick's outputs
+    within GRAPH_TOL; then CHUNK_PROFILE_TICKS ticks of each under
+    torch.profiler.  Every output finite and not silent; the kernel never
+    launched (the chunk head is the stage loop)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine = build_engine(device, "slots_f32", frames_per_tick=CHUNK)
+    engines = {"graph": build_engine(device, "slots_f32", frames_per_tick=CHUNK),
+               "eager": build_engine(device, "slots_f32", frames_per_tick=CHUNK, jit=False)}
     frames = (2 + CHUNK_TICKS + CHUNK_PROFILE_TICKS) * CHUNK
     audio = engine_audio(device, frames).reshape(-1, CHUNK, CAPACITY, 480)
     ticks = [utterance(a) for a in audio]
-    engine.flush_controls()
+    for e in engines.values():
+        e.flush_controls()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    peaks, finite, spans, host_ms, _ = timed_ticks(engine, ticks, 2 + CHUNK_TICKS)
-    peaks = peaks.max(dim=1).values
-    if not finite or float(peaks.min()) <= 1e-3:
-        raise AssertionError(f"T = {CHUNK} engine: output not finite or silent: {peaks}")
+    spans, host, diff, finite, quietest = paired_ticks(engines, ticks, 2 + CHUNK_TICKS)
+    if not finite or quietest <= 1e-3:
+        raise AssertionError(f"T = {CHUNK} engine: output not finite or silent: {quietest}")
+    if not diff <= GRAPH_TOL:
+        raise AssertionError(f"T = {CHUNK}: graph vs eager tick: max|d| {diff} > {GRAPH_TOL}")
     if sum(launch_counts().values()):
         raise AssertionError(f"T = {CHUNK} engine launched the kernel: {launch_counts()}")
-    times = spans[2:]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for k in range(2 + CHUNK_TICKS, len(ticks)):
-            engine.tick(ticks[k])
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    out = {"frames_per_tick": CHUNK, "ticks": CHUNK_TICKS, "max_abs_diff_graph_vs_eager": diff,
+           "tol": GRAPH_TOL, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "profiled_ticks": CHUNK_PROFILE_TICKS}
     n = CHUNK_PROFILE_TICKS
-    return {"frames_per_tick": CHUNK, "ticks": CHUNK_TICKS,
-            "median_tick_ms": float(np.median(times)), "p90_tick_ms": float(np.percentile(times, 90)),
-            "median_host_ms": float(np.median(host_ms[2:])),
-            "median_tick_ms_per_10ms_audio": float(np.median(times)) / CHUNK,
-            "implied_streams_per_10ms": CAPACITY * CHUNK * 10.0 / float(np.median(times)),
-            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-            "profiled_ticks": CHUNK_PROFILE_TICKS,
+    for name, engine in engines.items():
+        median = float(np.median(spans[name][2:]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in range(2 + CHUNK_TICKS, len(ticks)):
+                engine.tick(ticks[k])
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        out[name] = {
+            **tick_stats_ms(spans[name], host[name], 2),
+            "median_tick_ms_per_10ms_audio": median / CHUNK,
+            "implied_streams_per_10ms": CAPACITY * CHUNK * 10.0 / median,
             "device_launches_per_tick": sum(c for _, c, _ in rows) / n,
+            "host_launches_per_tick": host_launch_calls(prof) / n,
             "device_busy_ms_per_tick": sum(us for us, _, _ in rows) / n / 1e3,
-            "top": [{"kernel": key[:100], "ms_per_tick": us / n / 1e3, "launches_per_tick": c / n}
-                    for us, c, key in rows[:12]]}
+            "top": [{"kernel": key[:100], "ms_per_tick": us / n / 1e3,
+                     "launches_per_tick": c / n} for us, c, key in rows[:8]]}
+    return out
 
 
 def offline_phase(device):
@@ -946,9 +1072,17 @@ def set_morph(engine, controls, n_speakers):
         golden.set_morph(engine, i, pruned, top, n_speakers)
 
 
+def host_launch_calls(prof) -> int:
+    """The host's calls that put work on a stream (kernel and graph
+    launches, copies, fills) in a torch.profiler run."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cu") and any(w in e.key for w in HOST_LAUNCH_WORDS))
+
+
 def tick_launches(engine, audio, ticks):
-    """Device kernel launches per tick over `ticks` ticks under
-    torch.profiler."""
+    """Over `ticks` ticks under torch.profiler: device kernels (and
+    copies) per tick, and the host's launch calls per tick
+    (host_launch_calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -956,8 +1090,10 @@ def tick_launches(engine, audio, ticks):
         for k in range(ticks):
             engine.tick(audio[k])
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / ticks
+    device = sum(e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"device_launches_per_tick": device / ticks,
+            "host_launches_per_tick": host_launch_calls(prof) / ticks}
 
 
 def lottery_launches(engine, n_speakers, calls=5):
@@ -1175,7 +1311,9 @@ def serve_golden_phase(device, card):
     got = golden.run_serve(ModelHost, MODEL_DIR, device=device,
                            inspect=lambda host: seen.update(host.metrics()))
     counts = launch_counts()
-    want = {**dict.fromkeys(counts, 0), "float32": golden.SERVE_TICKS}
+    # one launch a tick: the scenario's, and the graph's warm-up ticks
+    want = {**dict.fromkeys(counts, 0),
+            "float32": golden.SERVE_TICKS + seen.get("graph_warmup_ticks", 0)}
     if counts != want:
         raise AssertionError(f"serve_golden: kernel launches {counts}, expected {want}")
     serving_health("serve_golden", seen)
@@ -1189,7 +1327,8 @@ def serve_golden_phase(device, card):
             raise AssertionError(f"serve_golden: session {i} {devs[f's{i}']} (tol "
                                  f"{golden.F32_ATOL}) or silent")
     log("serve_golden", t0, model="klatt8", capacity=golden.SERVE_CAPACITY,
-        ticks=golden.SERVE_TICKS, launches=counts, vs_golden=devs, tol=golden.F32_ATOL,
+        ticks=golden.SERVE_TICKS, graph_warmup_ticks=seen.get("graph_warmup_ticks", 0),
+        launches=counts, vs_golden=devs, tol=golden.F32_ATOL,
         serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_enqueue_p50_ms=seen["tick_p50_ms"],
         nvidia_smi=card)
     return counts["float32"], got
@@ -1242,10 +1381,12 @@ def serve_pipeline_phase(device, card, plain):
                              "not finite or silent")
     serving_health("serve_pipeline, row 0 live", srv.metrics())
     counts = launch_counts()
-    want = {**dict.fromkeys(counts, 0), "float32": golden.SERVE_TICKS + 6}
+    warmup = seen.get("graph_warmup_ticks", 0) + engine.counters.get("graph_warmup_ticks", 0)
+    want = {**dict.fromkeys(counts, 0), "float32": golden.SERVE_TICKS + 6 + warmup}
     if counts != want:
         raise AssertionError(f"serve_pipeline: kernel launches {counts}, expected {want}")
-    log("serve_pipeline", t0, model="klatt8", ticks=golden.SERVE_TICKS + 6, launches=counts,
+    log("serve_pipeline", t0, model="klatt8", ticks=golden.SERVE_TICKS + 6,
+        graph_warmup_ticks=warmup, launches=counts,
         max_abs_diff_vs_plain_one_tick_later=diff, tol=PIPELINE_TOL,
         serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_enqueue_p50_ms=seen["tick_p50_ms"],
         nvidia_smi=card)
@@ -1422,12 +1563,17 @@ def serve_tcp_phase(device, card, dtype):
     if "Traceback" in stderr or rc != 0:
         raise AssertionError(f"serve_tcp {dtype}: server rc {rc}, stderr {stderr[-3000:]}")
     serving_health(f"serve_tcp {dtype}", metrics)
-    if not metrics["ticks"] or not 0 <= launches[form] - metrics["ticks"] <= 1 or launches[other]:
+    # one launch a tick (the graph's warm-up ticks included), within the
+    # one tick that may run between the two reads
+    warmup = metrics.get("graph_warmup_ticks", 0)
+    if not metrics["ticks"] or not 0 <= launches[form] - metrics["ticks"] - warmup <= 1 \
+            or launches[other]:
         raise AssertionError(f"serve_tcp {dtype}: kernel launches {launches} for "
-                             f"{metrics['ticks']} ticks")
+                             f"{metrics['ticks']} ticks and {warmup} warm-up ticks")
     log("serve_tcp", t0, model="klatt8", dtype=form, capacity=SERVE_TCP_CAPACITY,
         clients=SERVE_TCP_CLIENTS, audio_seconds_per_client=SERVE_TCP_SECONDS,
-        server_startup_s=startup_s, ticks=metrics["ticks"], kernel_launches=launches,
+        server_startup_s=startup_s, ticks=metrics["ticks"], graph_warmup_ticks=warmup,
+        kernel_launches=launches,
         serve_tick_p50_ms=metrics["serve_tick_p50_ms"],
         serve_tick_p90_ms=metrics["serve_tick_p90_ms"],
         serve_ticks_per_s=metrics.get("serve_ticks_per_s"),
@@ -1509,13 +1655,14 @@ def serve_ws_phase(device, card):
         serving_health("serve_ws", eng.metrics_snapshot())
     counts = launch_counts()
     ticks = old.metrics.ticks + new.metrics.ticks
-    want = {**dict.fromkeys(counts, 0), "float32": ticks}
+    warmup = sum(e.counters.get("graph_warmup_ticks", 0) for e in (old, new))
+    want = {**dict.fromkeys(counts, 0), "float32": ticks + warmup}
     if counts != want or not old.metrics.ticks or not new.metrics.ticks:
         raise AssertionError(f"serve_ws: kernel launches {counts}, engine ticks "
                              f"{old.metrics.ticks} + {new.metrics.ticks}")
     log("serve_ws", t0, models=["klatt8", "klatt8_r6"], capacity=SERVE_WS_CAPACITY,
         ticks_before_swap=old.metrics.ticks, ticks_after_swap=new.metrics.ticks,
-        launches=counts, controls=before, serve_tick_p50_ms=metrics["serve_tick_p50_ms"],
+        graph_warmup_ticks=warmup, graph_after_swap=new._graph is not None, launches=counts, controls=before, serve_tick_p50_ms=metrics["serve_tick_p50_ms"],
         nvidia_smi=card)
     return counts["float32"]
 
@@ -1894,10 +2041,8 @@ def rank_launches(label, results, form, ticks):
 def tick_stats(res):
     """Median and p90 tick span (CUDA events), median host ms, peak MiB of a
     tick_case run, past its first WARMUP_TICKS ticks."""
-    spans, host = res["span_ms"][WARMUP_TICKS:], res["host_ms"][WARMUP_TICKS:]
-    return {"median_tick_ms": float(np.median(spans)),
-            "p90_tick_ms": float(np.percentile(spans, 90)),
-            "median_host_ms": float(np.median(host)), "peak_mib": res["peak_mib"]}
+    return {**tick_stats_ms(res["span_ms"], res["host_ms"], WARMUP_TICKS),
+            "peak_mib": res["peak_mib"]}
 
 
 def mesh_phases(device, card, by_path):
@@ -2095,13 +2240,17 @@ def main() -> int:
 
     entries = {form: kernel_phase(device, form) for form in KERNEL_NAME}
     by_path = {form: {} for form in KERNEL_NAME}
+    graph_runs = {}
+    for config, (_, form) in ENGINE_CONFIGS.items():
+        by_path[form][f"graph_{config}"], graph_runs[config] = graph_phase(device, config, card)
     for config, (_, form) in ENGINE_CONFIGS.items():
         by_path[form][f"engine_{config}"] = engine_phase(device, config)
     morph_runs = {}
     for config, (_, form) in ENGINE_CONFIGS.items():
         by_path[form][f"morph_{config}"], morph_runs[config] = morph_phase(device, config, card)
+    graph_profile_phase(device, graph_runs, card)
     morph_profile_phase(device, morph_runs, card)
-    del morph_runs
+    del morph_runs, graph_runs
     morph_offline_phase(device, card)
     by_path["float32"]["parity_stream"] = parity_phase(device)
     offline_phase(device)

@@ -5,7 +5,11 @@ against its yardstick (the FFMA bf16 form) and its SASS, the engine
 through the kernel against the engine
 through the plain version and against the golden file of the JAX engine,
 in the three configurations, the exact int8 contractions, and a tick
-without host synchronisation; offline conversion against the golden file
+without host synchronisation, functional and graph; the compiled tick (a
+CUDA graph over the donated tick): bitwise equal to the eager tick
+through edits, morphs and recover(), its replays counted as kernel
+launches, a capture while another engine's graph ticks (a ModelHost
+swap), and a capture that cannot succeed raising; offline conversion against the golden file
 of the JAX package's, and a tick of 25 frames (the stage loop) against 25
 real-time ticks (the kernel) for 2.0.0-rc.0 and 2.0.0-alpha.2; with morph
 streams, a warm tick without host synchronisation, tie order on the card,
@@ -216,12 +220,13 @@ def _klatt8(device):
             bank_mod.load(os.path.join(MODEL_DIR, "speakers.npz"), V20RC0, device=device))
 
 
-def _engine(config, device, upsampler_kernel=True, cap=8):
+def _engine(config, device, upsampler_kernel=True, cap=8, jit=True, frames_per_tick=1):
     from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine
 
     params, bank = _klatt8(device)
-    cfg = EngineConfig.realtime(cap, upsampler_kernel=upsampler_kernel, **CONFIGS[config])
-    return StreamEngine(cfg, params, bank, device=device)
+    cfg = EngineConfig.realtime(cap, upsampler_kernel=upsampler_kernel,
+                                frames_per_tick=frames_per_tick, **CONFIGS[config])
+    return StreamEngine(cfg, params, bank, device=device, jit=jit)
 
 
 def _counter(config):
@@ -303,39 +308,51 @@ def test_int8_contractions_are_exact_on_the_card(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_warm_tick_makes_no_host_synchronisation(cuda_device, config):
-    """A warm engine_tick copies nothing to the host and waits for nothing
-    (what a CUDA graph over the tick needs)."""
+def _warm_tick(e, x):
+    """A warm tick under torch's sync debug mode set to raise: with jit
+    the engine's tick (copy in, replay, copy out), else engine_tick.
+    Returns (output, the state after it)."""
     from beatrice_vst_tpu_torch.runtime.engine import engine_tick
 
-    e = _engine(config, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if e.jit:
+            out, state = e.tick(x), e.state
+        else:
+            out, state = engine_tick(e.params, e.bank, e.state, x, cfg=e.cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jit", [False, True])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_warm_tick_makes_no_host_synchronisation(cuda_device, config, jit):
+    """A warm tick copies nothing to the host and waits for nothing: the
+    functional engine_tick (what a CUDA graph over the tick needs), and
+    the graph tick."""
+    e = _engine(config, cuda_device, jit=jit)
     for i in range(e.cfg.capacity):
         e.admit()
         e.set_control(i, "target_speaker", i % 8)
     x = torch.zeros((e.cfg.capacity, 480), device=cuda_device)
     for _ in range(2):
         e.tick(x)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out, state = engine_tick(e.params, e.bank, e.state, x, cfg=e.cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    out, _ = _warm_tick(e, x)
     assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("jit", [False, True])
 @pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_morph_warm_tick_makes_no_host_synchronisation(cuda_device, config):
+def test_morph_warm_tick_makes_no_host_synchronisation(cuda_device, config, jit):
     """With morph streams (the codebook lottery, morph slots or morphed K/V
-    cache rows) a warm engine_tick still copies nothing to the host and
-    waits for nothing."""
-    from beatrice_vst_tpu_torch.runtime.engine import engine_tick
-
-    e = _engine(config, cuda_device)
+    cache rows) a warm tick still copies nothing to the host and waits for
+    nothing, functional or graph."""
+    e = _engine(config, cuda_device, jit=jit)
     for i in range(e.cfg.capacity):
         e.admit()
         e.set_control(i, "target_speaker", i % 8)
@@ -344,13 +361,7 @@ def test_morph_warm_tick_makes_no_host_synchronisation(cuda_device, config):
     x = torch.zeros((e.cfg.capacity, 480), device=cuda_device)
     for _ in range(2):
         e.tick(x)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out, state = engine_tick(e.params, e.bank, e.state, x, cfg=e.cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    out, state = _warm_tick(e, x)
     assert bool(torch.isfinite(out).all())
     assert state["frame_counter"].tolist() == [3] * e.cfg.capacity
 
@@ -445,6 +456,106 @@ def test_chunk_tick_matches_streaming_on_the_card(cuda_device, version):
                         device=cuda_device, timer=timer)
     assert report.passed, str(report)
     assert counts == {"chunk": 0, "stream": 25}
+
+
+# ---- the compiled tick: a CUDA graph over the donated tick ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames_per_tick", [1, 3])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_graph_tick_equals_eager_tick(cuda_device, config, frames_per_tick):
+    """golden.run_edits (32 ticks with control edits, admit and evict,
+    reset_context, morphs and recover() between them) through the graph
+    engine and the eager one (jit=False): bitwise equal, every tick's
+    output a tensor of its own, the state's tensors the graph's
+    throughout."""
+    runs, kept = {}, []
+    for jit in (True, False):
+        e = _engine(config, cuda_device, cap=golden.EDITS_CAPACITY, jit=jit,
+                    frames_per_tick=frames_per_tick)
+        assert (e._graph is not None) is jit
+        leaves = [id(t) for t in _leaves(e.state)]
+        runs[jit] = golden.run_edits(e, lambda t: t.cpu().numpy(), keep=kept if jit else None)
+        assert ([id(t) for t in _leaves(e.state)] == leaves) is jit
+    np.testing.assert_array_equal(runs[True], runs[False])
+    assert len({t.data_ptr() for t in kept}) == golden.EDITS_TICKS
+    assert np.abs(runs[True]).max() > 1e-3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["slots_f32", "slots_bf16"])
+def test_kernel_counters_count_graph_replays(cuda_device, config):
+    """The capture records one launch of the configuration's form and
+    counts none; the warm-up ticks before it launch it once each; every
+    replay counts one launch, and the other form none."""
+    import beatrice_vst_tpu_torch.runtime.engine as engine_mod
+
+    counter = _counter(config)
+    other = "launches" if counter == "launches_bf16" else "launches_bf16"
+    before = (getattr(FU, counter), getattr(FU, other))
+    e = _engine(config, cuda_device)
+    torch.cuda.synchronize()
+    assert e.counters["graph_warmup_ticks"] == engine_mod.GRAPH_WARMUP_TICKS
+    form = FU.FORMS[torch.bfloat16 if config.endswith("bf16") else torch.float32]
+    assert e._recorded == {(form, torch.bfloat16 if config.endswith("bf16") else torch.float32): 1}
+    assert (getattr(FU, counter), getattr(FU, other)) == (
+        before[0] + engine_mod.GRAPH_WARMUP_TICKS, before[1])
+    e.admit()
+    x = torch.zeros((e.cfg.capacity, 480), device=cuda_device)
+    for _ in range(5):
+        e.tick(x)
+    torch.cuda.synchronize()
+    assert (getattr(FU, counter), getattr(FU, other)) == (
+        before[0] + engine_mod.GRAPH_WARMUP_TICKS + 5, before[1])
+
+
+@pytest.mark.cuda
+def test_model_host_swap_captures_while_the_old_server_ticks(cuda_device):
+    """A model swap on a realtime ModelHost: the new engine warms up and
+    captures its graph on the caller's thread while the old engine's
+    scheduler keeps ticking its graph; both engines tick without a
+    failure and the session hears audio after the swap."""
+    import time
+
+    from beatrice_vst_tpu_torch.runtime import ModelHost
+
+    host = ModelHost(capacity=4)
+    assert host.jit and host.load_model(MODEL_DIR) == 0
+    try:
+        s = host.open_session(48000.0)
+        s.push(np.tile(golden.serve_signal(48000, 0), 3)[:48000])
+        old = host.engine
+        deadline = time.monotonic() + 60
+        while old.metrics.ticks < 10 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        ticks = old.metrics.ticks
+        assert host.load_model(os.path.join(MODEL_DIR, "..", "klatt8_r6")) == 0
+        new = host.engine
+        assert new is not old and new._graph is not None
+        assert old.metrics.ticks > ticks  # the old graph ticked during the capture
+        s.push(golden.serve_signal(48000, 1)[:9600])
+        while new.metrics.ticks < 30 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out = s.pull(48000)
+        assert host.server.running
+    finally:
+        host.stop()
+    for e in (old, new):
+        snap = e.metrics_snapshot()
+        assert "last_error" not in snap and not snap.get("recoveries"), snap
+    assert len(out) and np.isfinite(out).all() and np.abs(out).max() > 1e-3
 
 
 # ---- serving on the card ----
@@ -686,3 +797,32 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, config):
         assert got["launches"] == {"float32": 0, "bfloat16": 0, form: MESH_TICKS}
         np.testing.assert_allclose(got["out"], plain["out"], rtol=0,
                                    atol=BF16_TOL if form == "bfloat16" else TOL)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
+    """A synchronising step (a copy to the host) warms up, as eager code
+    may, but cannot be captured: building the engine raises and no engine
+    ticks eagerly in its place.  (Last in the file: it leaves a failed
+    capture behind.)"""
+    import beatrice_vst_tpu_torch.runtime.engine as engine_mod
+
+    donated = engine_mod.donated_tick
+
+    def syncing(*args, **kw):
+        out = donated(*args, **kw)
+        float(out.sum())  # waits for the card
+        return out
+
+    monkeypatch.setattr(engine_mod, "donated_tick", syncing)
+    before = (FU.launches, FU.launches_bf16)
+    with pytest.raises(RuntimeError):
+        _engine("slots_f32", cuda_device)
+    assert FU._capture.counts is None
+    assert (FU.launches, FU.launches_bf16) == (before[0] + engine_mod.GRAPH_WARMUP_TICKS,
+                                               before[1])
+    monkeypatch.undo()
+    e = _engine("slots_f32", cuda_device)  # the card still captures and ticks
+    e.admit()
+    out = e.tick(torch.zeros((e.cfg.capacity, 480), device=cuda_device))
+    assert bool(torch.isfinite(out).all())
