@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import pin
+
 
 def hann_window(win: int) -> np.ndarray:
     """Periodic Hann window."""
@@ -77,8 +79,9 @@ class MelFrontend:
         return _consts_np(self)
 
     def consts(self, device):
-        """The same constants as torch tensors on `device` (cached)."""
-        return _consts_torch(self, str(torch.device(device)))
+        """The same constants as torch tensors on `device` (cached; pinned
+        by a graph being captured)."""
+        return pin(_consts_torch(self, str(torch.device(device))))
 
     def __call__(self, frames):
         """[..., win] windowed raw audio -> [..., n_mels] log-mel."""

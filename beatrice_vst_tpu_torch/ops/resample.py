@@ -20,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import pin, resolve_device
 
 
 def compute_simple_fraction(ratio: float, limit: int = 1000) -> tuple[int, int]:
@@ -139,11 +139,11 @@ class Resampler:
         hist = self.history_len
         sub = self.dense_sub_block()
         if sub:
-            s = _dense_torch(dataclasses.replace(self, in_block=sub), str(x.device))
+            s = pin(_dense_torch(dataclasses.replace(self, in_block=sub), str(x.device)))
             windows = full.unfold(-1, hist + sub, sub)  # [..., in_block / sub, hist + sub]
             y = torch.matmul(windows, s).flatten(-2)
         else:
-            y = torch.matmul(full, _dense_torch(self, str(x.device)))
+            y = torch.matmul(full, pin(_dense_torch(self, str(x.device))))
         return y, full[..., full.shape[-1] - hist:]
 
     def apply_offline(self, x):

@@ -241,9 +241,10 @@ def distill_case(params, bank, batch, version: str, mesh_shape=None,
     opt = distill.make_optimizer(p, lr)
     grads = []
     _snapshot_grads(opt, grads)
+    # jit=False: the gradients are read where the optimizer takes them
     _, _, metrics = distill.train_step(p, opt, _train_batch(cfg, bank, batch, dev, mesh),
                                        cfg=cfg, periodicity_weight=periodicity_weight,
-                                       mesh=mesh)
+                                       mesh=mesh, jit=False)
     names = [k for k in flatten_params(_sorted_like(p))]
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": dict(zip(names, grads[0])),
@@ -283,7 +284,7 @@ def gan_case(params, bank, batch, disc, version: str, mesh_shape=None,
     _snapshot_grads(disc_opt, d_grads)
     metrics = gan.gan_train_step(g, d, gen_opt, disc_opt,
                                  _train_batch(cfg, bank, batch, dev, mesh), cfg=cfg,
-                                 mesh=mesh)[-1]
+                                 mesh=mesh, jit=False)[-1]
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "g_grads": dict(zip(flatten_params(_sorted_like(g)), g_grads[0])),
             "d_grads": dict(zip(flatten_params(_sorted_like(d)), d_grads[0])),

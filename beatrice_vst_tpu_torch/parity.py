@@ -23,8 +23,9 @@ from .constants import COMMON_HOP_LENGTH, V20RC0
 from .device import resolve_device
 from .models import chain
 from .models.io import params_from_numpy
-from .runtime.engine import (EngineConfig, cast_params, engine_tick, init_engine_state,
-                             prepare_bank, refresh_conditioning)
+from .runtime import graphs
+from .runtime.engine import (EngineConfig, cast_params, donated_tick, engine_tick,
+                             init_engine_state, prepare_bank, refresh_conditioning)
 from .speakers import bank as bank_mod
 
 
@@ -55,7 +56,7 @@ def parity_audio(n_frames: int, batch: int, seed: int = 0) -> np.ndarray:
 def run_parity(params=None, model_cfg=None, bank=None, audio48=None, spec=V20RC0,
                n_frames: int = 25, batch: int = 2, tolerance: float = 1e-3, seed: int = 0,
                controls: dict | None = None, device="cuda", engine_kw: dict | None = None,
-               timer=None) -> ParityReport:
+               timer=None, jit: bool | None = None) -> ParityReport:
     """Streaming-vs-chunk parity through the whole engine tick
     (`parity.py:57`).
 
@@ -70,9 +71,19 @@ def run_parity(params=None, model_cfg=None, bank=None, audio48=None, spec=V20RC0
     harness.  engine_kw: more `EngineConfig`
     fields for both engines (the JAX harness uses the default
     configuration, slots f32).  timer(name), if given, returns a context
-    manager entered around the chunk tick ("chunk") and around the
-    streaming ticks ("stream").
+    manager entered around the chunk tick ("chunk"), around the capture of
+    the compiled streaming tick ("capture") and around the streaming
+    ticks ("stream").
+
+    Compiled (`jit` None or True, as the JAX harness jits its T = 1 tick),
+    the streaming half ticks one `graphs.CompiledStep` over the donated
+    tick (`engine.donated_tick`, the state donated into its own tensors):
+    a CUDA graph on the card, captured before the streaming ticks (its
+    warm-up calls tick a scratch copy of the state) and replayed once per
+    frame.  `jit=False` ticks `engine_tick` op by op.  The chunk half is
+    one eager `engine_tick` either way, as in the JAX harness.
     """
+    compiled = graphs.resolve_jit(jit)
     dev = resolve_device(device)
     if model_cfg is None:
         model_cfg = chain.VoiceConverterConfig.for_version(spec)
@@ -106,13 +117,23 @@ def run_parity(params=None, model_cfg=None, bank=None, audio48=None, spec=V20RC0
         out_chunk, _ = engine_tick(p, bk, state, audio48, cfg=cfg)
 
     cfg, p, bk, state = setup(1)
+    frames = [audio48[:, f * COMMON_HOP_LENGTH:(f + 1) * COMMON_HOP_LENGTH]
+              for f in range(n_frames)]
     outs = []
-    with timer("stream"):
-        for f in range(n_frames):
-            o, state = engine_tick(
-                p, bk, state, audio48[:, f * COMMON_HOP_LENGTH:(f + 1) * COMMON_HOP_LENGTH],
-                cfg=cfg)
-            outs.append(o)
+    if compiled:
+        with timer("capture"):
+            x = frames[0].clone()
+            step = graphs.CompiledStep(lambda s, a: donated_tick(p, bk, s, a, cfg=cfg), (state, x),
+                                       warmup_args=(graphs.clone_tree(state), x))
+        with timer("stream"):
+            for frame in frames:
+                x.copy_(frame)
+                outs.append(step().clone())
+    else:
+        with timer("stream"):
+            for frame in frames:
+                o, state = engine_tick(p, bk, state, frame, cfg=cfg)
+                outs.append(o)
     out_stream = torch.cat(outs, dim=1)
 
     diff = (out_stream.double() - out_chunk.double()).abs()

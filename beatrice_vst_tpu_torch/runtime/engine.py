@@ -48,8 +48,9 @@ new state dict and leaves its input state untouched.
 with donated state, the counterpart of the JAX engine's
 `jax.jit(engine_tick, donate_argnums=(2,))`: `donated_tick` writes the new
 state into the tensors it was given.  On CUDA the engine captures one
-donated tick in a `torch.cuda.CUDAGraph` when it is built, over static
-tensors (its state, an input and an output), and each tick replays it:
+donated tick in a `torch.cuda.CUDAGraph` when it is built
+(`graphs.CompiledStep`), over static tensors (its state, an input and an
+output), and each tick replays it:
 three host launches (copy in, replay, copy out) in place of about a
 thousand.  On the CPU, where CUDA graphs do not exist, it runs the
 donated tick op by op.  `jit=False` ticks `engine_tick` op by op and
@@ -71,20 +72,21 @@ from ..constants import (COMMON_HOP_LENGTH, MAX_N_SPEAKERS, SPH_AVG_MAX_N_SPEAKE
                          VersionSpec)
 from ..device import resolve_device
 from ..errors import BeatriceError, ErrorCode
-from ..models import chain, fused_upsampler, waveform_generator
+from ..models import chain, waveform_generator
 from ..models.chain import VoiceConverterConfig
 from ..models.io import params_from_numpy
 from ..models.layers import quantize_rows
 from ..ops.gain import gain_process
 from ..ops.resample import input_resampler_48k_to_16k, output_resampler_24k_to_48k
 from ..speakers import morpher
+from . import graphs
 from .controls import CONTROL_FIELDS, ControlStage, init_controls
 from .metrics import EngineMetrics
 
 KV_CACHE_MODES = ("slots", "per_stream")
 # donated ticks run on a scratch copy of the state before a CUDA graph is
 # captured: they build every constant the tick makes at its first call
-GRAPH_WARMUP_TICKS = 2
+GRAPH_WARMUP_TICKS = graphs.GRAPH_WARMUP_CALLS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,60 +323,15 @@ def engine_tick(params, bank, state, audio48, *, cfg: EngineConfig):
     }
 
 
-def _changed_leaves(old, new, dst, src) -> None:
-    """Append to dst / src each leaf of `old` and the leaf of `new` that
-    replaces it, where the tick made a new tensor; subtrees and leaves it
-    passed through (the same objects) are skipped."""
-    if new is old:
-        return
-    if isinstance(old, dict):
-        if old.keys() != new.keys():
-            raise ValueError(f"the tick changed the state's keys: {sorted(old)} -> {sorted(new)}")
-        for k in old:
-            _changed_leaves(old[k], new[k], dst, src)
-    elif isinstance(old, list):
-        if len(old) != len(new):
-            raise ValueError(f"the tick changed a state list's length: {len(old)} -> {len(new)}")
-        for o, n in zip(old, new):
-            _changed_leaves(o, n, dst, src)
-    else:
-        if new.shape != old.shape or new.dtype != old.dtype:
-            raise ValueError(f"the tick changed a state leaf: {tuple(old.shape)} {old.dtype} -> "
-                             f"{tuple(new.shape)} {new.dtype}")
-        dst.append(old)
-        src.append(new)
-
-
 def donated_tick(params, bank, state, audio48, *, cfg: EngineConfig) -> torch.Tensor:
     """`engine_tick` with donated state (the JAX engine's `jax.jit(tick,
     donate_argnums=(2,))`): the new state is written into `state`'s own
     tensors, which stay the same objects, and the output is returned.
-    Only the leaves the tick replaced are copied: the K/V cache, the slot
-    bank and the controls pass through untouched.  A new leaf that shares
-    memory with a leaf being written is copied aside first, so no copy
-    reads what another has overwritten."""
+    Only the leaves the tick replaced are copied (`graphs.write_back_`):
+    the K/V cache, the slot bank and the controls pass through untouched."""
     out, new = engine_tick(params, bank, state, audio48, cfg=cfg)
-    dst, src = [], []
-    _changed_leaves(state, new, dst, src)
-    written = {t.untyped_storage().data_ptr() for t in dst}
-    src = [t.clone() if t.untyped_storage().data_ptr() in written else t for t in src]
-    torch._foreach_copy_(dst, src)
+    graphs.write_back_(state, new)
     return out
-
-
-def _clone_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _clone_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone_tree(v) for v in tree]
-    return tree.clone()
-
-
-def _copy_tree_(dst, src) -> None:
-    """Copy every leaf of `src` into the same leaf of `dst`, in place."""
-    d, s = [], []
-    _changed_leaves(dst, src, d, s)
-    torch._foreach_copy_(d, s)
 
 
 def apply_control_updates(state, updates) -> None:
@@ -562,37 +519,22 @@ class StreamEngine:
             self._capture()
 
     def _capture(self) -> None:
-        """Capture one donated tick in a CUDA graph over `self.state`, a
-        static input and the output it returns.  GRAPH_WARMUP_TICKS donated
-        ticks first run on a side stream on a scratch copy of the state
-        (ticking the live state would advance every stream), counted in
-        `counters["graph_warmup_ticks"]`: they build the tick's lazily made
-        constants, whose copies from the host could not be captured.
-        thread_local capture leaves other threads' CUDA work alone: a
-        ModelHost builds a new engine while the old one ticks.  A failed
-        warm-up or capture raises.  `capture_ms` is the host's time for
-        all of it, the graph's instantiation included."""
-        cfg = self.cfg
-        t0 = time.perf_counter()
+        """Capture one donated tick in a CUDA graph over `self.state` and a
+        static input (`graphs.CompiledStep`).  Its GRAPH_WARMUP_TICKS
+        warm-up ticks run on a scratch copy of the state (ticking the live
+        state would advance every stream), counted in
+        `counters["graph_warmup_ticks"]`; they launch the kernel, and the
+        launches count.  A failed warm-up or capture raises."""
+        cfg, params, bank = self.cfg, self.params, self.bank
         with torch.cuda.device(self.device):
             self._static_in = torch.zeros((cfg.capacity, cfg.samples_per_tick),
                                           device=self.device)
-            scratch = _clone_tree(self.state)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(GRAPH_WARMUP_TICKS):
-                    donated_tick(self.params, self.bank, scratch, self._static_in, cfg=cfg)
-            torch.cuda.current_stream().wait_stream(side)
-            del scratch
-            self.counters["graph_warmup_ticks"] = GRAPH_WARMUP_TICKS
-            graph = torch.cuda.CUDAGraph()
-            with fused_upsampler.recording() as recorded:
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    self._static_out = donated_tick(self.params, self.bank, self.state,
-                                                    self._static_in, cfg=cfg)
-        self._graph, self._recorded = graph, dict(recorded)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self._graph = graphs.CompiledStep(
+            lambda state, x: donated_tick(params, bank, state, x, cfg=cfg),
+            (self.state, self._static_in),
+            warmup_args=(graphs.clone_tree(self.state), self._static_in))
+        self.counters["graph_warmup_ticks"] = GRAPH_WARMUP_TICKS
+        self._recorded, self.capture_ms = self._graph.recorded, self._graph.capture_ms
 
     # ---- stream table ----
 
@@ -746,7 +688,7 @@ class StreamEngine:
         into the state's own tensors (a captured graph reads them)."""
         fresh = init_engine_state(self.cfg, self.device)
         if self.jit:
-            _copy_tree_(self.state, fresh)
+            graphs.copy_tree_(self.state, fresh)
         else:
             self.state = fresh
         self.stage = ControlStage()
@@ -779,10 +721,8 @@ class StreamEngine:
         t0 = time.perf_counter()
         if self._graph is not None:
             self._static_in.copy_(x)
-            self._graph.replay()
-            fused_upsampler.count_replay(self._recorded)
             # the graph's output is overwritten by the next replay
-            out = self._static_out.clone()
+            out = self._graph().clone()
         elif self.jit:
             out = donated_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
         else:

@@ -26,6 +26,7 @@ from ..models.chain import VoiceConverterConfig
 from ..models.io import params_from_numpy
 from ..ops.resample import make_resampler, rational_rate_ratio
 from ..speakers import morpher
+from . import graphs
 
 
 @dataclasses.dataclass
@@ -117,7 +118,8 @@ def build_cond(params, cfg: VoiceConverterConfig, bank, settings: ConversionSett
 
 def convert_utterance(params, cfg: VoiceConverterConfig, bank, audio, sample_rate: float,
                       settings: ConversionSettings = None, out_sample_rate: float = None,
-                      compute_dtype=None, chunk_frames: int = None, device="cuda"):
+                      compute_dtype=None, chunk_frames: int = None, device="cuda",
+                      jit: bool | None = None):
     """Convert one utterance [n] or a batch [B, n] at `sample_rate`
     (`offline.py:131`).  Returns numpy f32 audio at `out_sample_rate`
     (default: the input rate).
@@ -128,7 +130,19 @@ def convert_utterance(params, cfg: VoiceConverterConfig, bank, audio, sample_rat
     many frames with the state carried between them (bounded memory);
     0 runs the utterance as one chunk; None (auto) chunks at 256 frames
     beyond 384 frames.
+
+    Compiled (`jit` None or True, the default, as the JAX package jits
+    `_jitted_apply` and `_jitted_resample`), the chunk step (the state
+    donated into its static tensors), the whole-utterance step and the two
+    resamplers are steps of the step cache (`graphs`): CUDA graphs on the
+    card, captured at the first call of each shape and keyed by the
+    identity of the parameter tensors, so that params already on the
+    device as tensors reuse them across calls (numpy params are moved anew
+    at every call, and capture anew).  The cond (`build_cond`: the morph
+    average and the lottery at frame 0) is computed outside them and
+    copied in.  `jit=False` runs everything op by op.
     """
+    compiled = graphs.resolve_jit(jit)
     if chunk_frames is None:
         chunk_frames = 256 if audio_longer_than(audio, sample_rate, 384) else 0
     settings = settings or ConversionSettings()
@@ -143,29 +157,78 @@ def convert_utterance(params, cfg: VoiceConverterConfig, bank, audio, sample_rat
     b = x.shape[0]
 
     if sample_rate != 16000:
-        x = make_resampler(sample_rate, 16000, _block_for(sample_rate, 16000)).apply_offline(x)
+        x = resample(make_resampler(sample_rate, 16000, _block_for(sample_rate, 16000)), x,
+                     compiled)
     t = -(-x.shape[-1] // IN_HOP_LENGTH)
     x = torch.nn.functional.pad(x, (0, t * IN_HOP_LENGTH - x.shape[-1]))
 
     cond = build_cond(params, cfg, bank, settings, b, compute_dtype)
-    state = chain.init_state(cfg, (b,), dev)
+    kw = dict(compute_dtype=compute_dtype, soft_pitch=settings.soft_pitch)
     if chunk_frames and chunk_frames < t:
         x = torch.nn.functional.pad(x, (0, ((-t) % chunk_frames) * IN_HOP_LENGTH))
-        parts = []
-        for seg in torch.split(x, chunk_frames * IN_HOP_LENGTH, dim=-1):
-            y_seg, state = chain.apply(params, cfg, seg, state, cond, compute_dtype,
-                                       soft_pitch=settings.soft_pitch)
-            parts.append(y_seg)
+        segs = torch.split(x, chunk_frames * IN_HOP_LENGTH, dim=-1)
+        if compiled:
+            parts = _compiled_chunks(params, cfg, segs, cond, **kw)
+        else:
+            state = chain.init_state(cfg, (b,), dev)
+            parts = []
+            for seg in segs:
+                y_seg, state = chain.apply(params, cfg, seg, state, cond, **kw)
+                parts.append(y_seg)
         y = torch.cat(parts, dim=-1)[:, :t * OUT_HOP_LENGTH]
+    elif compiled:
+        y = graphs.call(("whole", cfg, tuple(kw.items()), graphs.identity(params)),
+                        lambda x16, c: _whole(params, cfg, x16, c, **kw), x, cond)
     else:
-        y, _ = chain.apply(params, cfg, x, state, cond, compute_dtype,
-                           soft_pitch=settings.soft_pitch)
+        y = _whole(params, cfg, x, cond, **kw)
 
     if out_sample_rate != 24000:
-        y = make_resampler(24000, out_sample_rate,
-                           _block_for(24000, out_sample_rate)).apply_offline(y)
+        y = resample(make_resampler(24000, out_sample_rate, _block_for(24000, out_sample_rate)),
+                     y, compiled)
     y = y.float().cpu().numpy()
     return y[0] if squeeze else y
+
+
+def _whole(params, cfg, x16, cond, *, compute_dtype, soft_pitch):
+    """The chain over a whole utterance from the zero state."""
+    state = chain.init_state(cfg, (x16.shape[0],), x16.device)
+    return chain.apply(params, cfg, x16, state, cond, compute_dtype, soft_pitch=soft_pitch)[0]
+
+
+def _chunk(params, cfg, seg, state, cond, *, compute_dtype, soft_pitch):
+    """One chunk with donated state: the chain's new state written into
+    `state`'s own tensors; returns the chunk's audio."""
+    y, new = chain.apply(params, cfg, seg, state, cond, compute_dtype, soft_pitch=soft_pitch)
+    graphs.write_back_(state, new)
+    return y
+
+
+def _compiled_chunks(params, cfg, segs, cond, **kw) -> list:
+    """Every chunk through the chunk step of the step cache: its state
+    zeroed and the cond copied in once, each chunk copied in and replayed."""
+    key = ("chunk", cfg, tuple(kw.items()), graphs.identity(params),
+           graphs.signature((segs[0], cond)))
+    step = graphs.CACHE.get(key, lambda: graphs.CompiledStep(
+        lambda seg, state, c: _chunk(params, cfg, seg, state, c, **kw),
+        (segs[0].clone(), chain.init_state(cfg, (segs[0].shape[0],), segs[0].device),
+         graphs.clone_tree(cond))))
+    seg_in, state, cond_in = step.args
+    parts = []
+    with step.lock:
+        graphs.zero_tree_(state)
+        graphs.copy_tree_(cond_in, cond)
+        for seg in segs:
+            seg_in.copy_(seg)
+            parts.append(step().clone())
+    return parts
+
+
+def resample(rs, x, compiled: bool):
+    """`rs.apply_offline(x)`, compiled (a step of the step cache per
+    resampler and input shape) or op by op."""
+    if not compiled:
+        return rs.apply_offline(x)
+    return graphs.call(("resample", rs), rs.apply_offline, x)
 
 
 def audio_longer_than(audio, sample_rate: float, frames: int) -> bool:

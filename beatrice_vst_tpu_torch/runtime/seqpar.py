@@ -41,7 +41,8 @@ from ..models.io import params_from_numpy
 from ..ops.pitch_math import transform_pitch
 from ..ops.resample import make_resampler
 from ..parallel.mesh import all_gather_cat, axis_sizes
-from .offline import ConversionSettings, _block_for, build_cond
+from . import graphs
+from .offline import ConversionSettings, _block_for, build_cond, resample
 
 
 def chain_receptive_field_frames(cfg: VoiceConverterConfig) -> int:
@@ -57,7 +58,7 @@ def chain_receptive_field_frames(cfg: VoiceConverterConfig) -> int:
     return max(stack_rf(cfg.phone), stack_rf(cfg.pitch)) + wg_rf + 2
 
 
-def _pitch_pass(params, cfg, seg16, cond, compute_dtype, soft_pitch):
+def _pitch_pass(params, cfg, seg16, cond, *, compute_dtype, soft_pitch):
     """Pass A: the pitch stage of a batch of segments -> the vocoder's
     per-frame phase increments [N, T] f32, from the bins `chain.apply`
     hands it (argmax or, with soft_pitch, the expected bin; transformed;
@@ -84,7 +85,7 @@ def _pitch_pass(params, cfg, seg16, cond, compute_dtype, soft_pitch):
     return waveform_generator.frame_increments(qp)
 
 
-def _chain_pass(params, cfg, seg16, cond, phase0, counter0, compute_dtype, soft_pitch):
+def _chain_pass(params, cfg, seg16, cond, phase0, counter0, *, compute_dtype, soft_pitch):
     """Pass B: the whole chain over a batch of segments from a zero state
     with the given source phase [N] and noise counter [N]."""
     state = chain.init_state(cfg, (seg16.shape[0],), seg16.device)
@@ -112,7 +113,8 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
                          settings: ConversionSettings | None = None, n_segments: int = 8,
                          warmup_frames: int | None = None,
                          out_sample_rate: float | None = None, compute_dtype=None,
-                         device="cuda", mesh=None, axis: str = "streams"):
+                         device="cuda", mesh=None, axis: str = "streams",
+                         jit: bool | None = None):
     """Convert one utterance [n] (or a batch [B, n]) at `sample_rate` with
     its frame axis cut into `n_segments` segments (`seqpar.py:136`).
     Returns numpy f32 at `out_sample_rate` (default: the input rate), the
@@ -124,7 +126,15 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
     `device`.  With a `mesh`, every rank of it calls this with the same
     arguments and gets the whole result; the segments' rows are split over
     the ranks of `axis` where (s-1)*B divides by its size, else every rank
-    converts them all (the JAX package's rule)."""
+    converts them all (the JAX package's rule).
+
+    Compiled (`jit` None or True without a mesh; `graphs.resolve_jit`),
+    the pitch pass and the chain pass of each batch of segments and the
+    resamplers are steps of the step cache, as in
+    `offline.convert_utterance`; the phase prefix between the passes stays
+    on the host, as in the JAX package.  With a mesh they run op by op
+    (their compiled form is ROADMAP C9)."""
+    compiled = graphs.resolve_jit(jit, mesh)
     settings = settings or ConversionSettings()
     out_sample_rate = out_sample_rate or sample_rate
     w = int(chain_receptive_field_frames(cfg) if warmup_frames is None else warmup_frames)
@@ -137,7 +147,8 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
         x = x[None]
     b = x.shape[0]
     if sample_rate != 16000:
-        x = make_resampler(sample_rate, 16000, _block_for(sample_rate, 16000)).apply_offline(x)
+        x = resample(make_resampler(sample_rate, 16000, _block_for(sample_rate, 16000)), x,
+                     compiled)
     n16 = x.shape[-1]
     t_real = -(-n16 // IN_HOP_LENGTH)
 
@@ -148,9 +159,24 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
     seg0 = x[:, :f * IN_HOP_LENGTH]
     zeros = torch.zeros((b,), device=dev)
     zero_counter = torch.zeros((b,), dtype=torch.int64, device=dev)
+    kw = dict(compute_dtype=compute_dtype, soft_pitch=settings.soft_pitch)
+    static = ("seqpar", cfg, tuple(kw.items()), graphs.identity(params))
+
+    def pitch_pass(seg16, cond):
+        if not compiled:
+            return _pitch_pass(params, cfg, seg16, cond, **kw)
+        return graphs.call(static + ("pitch",),
+                           lambda x, c: _pitch_pass(params, cfg, x, c, **kw), seg16, cond)
+
+    def chain_pass(seg16, cond, phase0, counter0):
+        if not compiled:
+            return _chain_pass(params, cfg, seg16, cond, phase0, counter0, **kw)
+        return graphs.call(static + ("chain",),
+                           lambda x, c, p0, n0: _chain_pass(params, cfg, x, c, p0, n0, **kw),
+                           seg16, cond, phase0, counter0)
+
     if s == 1:
-        y24 = _chain_pass(params, cfg, seg0, cond1, zeros, zero_counter, compute_dtype,
-                          settings.soft_pitch)[:, :t_real * OUT_HOP_LENGTH]
+        y24 = chain_pass(seg0, cond1, zeros, zero_counter)[:, :t_real * OUT_HOP_LENGTH]
     else:
         # segments 1..s-1 with a w-frame halo, segment-major [(s-1)*B, (w+f)*160]
         segs = torch.stack([x[:, (k * f - w) * IN_HOP_LENGTH:(k * f + f) * IN_HOP_LENGTH]
@@ -163,9 +189,8 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
                                   else {kk: vv[rows] for kk, vv in v.items()}
                                   for k, v in cond.items()}
         # pass A: increments of every frame; the phase prefix on the host in f64
-        inc0 = _pitch_pass(params, cfg, seg0, cond1, compute_dtype, settings.soft_pitch)
-        inc_seg = gather(_pitch_pass(params, cfg, segs, cond, compute_dtype,
-                                     settings.soft_pitch))
+        inc0 = pitch_pass(seg0, cond1)
+        inc_seg = gather(pitch_pass(segs, cond))
         inc0 = inc0.double().cpu().numpy()
         inc_seg = inc_seg.double().cpu().numpy().reshape(s - 1, b, w + f)
         inc_real = np.concatenate(
@@ -176,18 +201,15 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
         phase0 = np.mod(seg_start_phase - warm_sum, 2.0 * np.pi).astype(np.float32)
         counter0 = np.repeat((np.arange(1, s, dtype=np.int64) * f - w) & 0xFFFFFFFF, b)
         # pass B: the whole chain on every segment, the warmup dropped
-        y0 = _chain_pass(params, cfg, seg0, cond1, zeros, zero_counter, compute_dtype,
-                         settings.soft_pitch)
-        y = gather(_chain_pass(params, cfg, segs, cond,
-                               torch.from_numpy(phase0.reshape(-1)[rows]).to(dev),
-                               torch.from_numpy(counter0[rows]).to(dev), compute_dtype,
-                               settings.soft_pitch))
+        y0 = chain_pass(seg0, cond1, zeros, zero_counter)
+        y = gather(chain_pass(segs, cond, torch.from_numpy(phase0.reshape(-1)[rows]).to(dev),
+                              torch.from_numpy(counter0[rows]).to(dev)))
         rest = y[:, w * OUT_HOP_LENGTH:].reshape(s - 1, b, f * OUT_HOP_LENGTH)
         rest = rest.permute(1, 0, 2).reshape(b, (s - 1) * f * OUT_HOP_LENGTH)
         y24 = torch.cat([y0, rest], dim=-1)[:, :t_real * OUT_HOP_LENGTH]
 
     if out_sample_rate != 24000:
-        y24 = make_resampler(24000, out_sample_rate,
-                             _block_for(24000, out_sample_rate)).apply_offline(y24)
+        y24 = resample(make_resampler(24000, out_sample_rate, _block_for(24000, out_sample_rate)),
+                       y24, compiled)
     out = y24.float().cpu().numpy()
     return out[0] if squeeze else out

@@ -10,10 +10,13 @@ Parameters stay the port's nested dicts and lists of tensors; `trainable`
 makes them f32 leaf tensors that require grad, and `Optimizer` holds the
 flattened leaves: `torch.optim.AdamW` with optax's adamw semantics
 (decoupled weight decay, eps outside the square root), an optional
-warmup-cosine `LambdaLR` and an optional global-norm clip written as
-optax's `clip_by_global_norm`.  The vocoder's upsampler head runs its
+warmup-cosine schedule written into its learning-rate tensor before each
+update and an optional global-norm clip written as optax's
+`clip_by_global_norm`.  The vocoder's upsampler head runs its
 plain PyTorch version under autograd (`trainer_config`): the CUDA kernel
-has no backward.
+has no backward.  `train_step` is compiled by default, as the JAX
+package jits it (`runtime/graphs.py`): the whole step is one CUDA graph
+on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..models import chain
 from ..models.io import params_from_numpy
 from ..parallel.collectives import (all_reduce_grads_, dp_group, global_mean, global_norm,
                                     global_sum, is_sharded, model_group, reduce_sum)
+from ..runtime import graphs
 
 STFT_RESOLUTIONS = ((512, 128), (1024, 256), (256, 64))  # (fft, hop)
 
@@ -216,42 +220,70 @@ class Optimizer:
     bias-corrected moments, eps outside the square root.  A parameter
     without a gradient gets a zero one, so weight decay reaches it as in
     optax.  The moments are made at construction, so that a checkpoint
-    holds the same leaves before the first step as after it.  Leaves split
+    holds the same leaves before the first step as after it.
+
+    The learning rate is a tensor on the leaves' device (`lr`) and
+    AdamW's step counts live there too: on CUDA AdamW is capturable, so
+    that `update`, the device half of a step, can be captured in a CUDA
+    graph (the compiled `train_step`), which reads `lr` at its address.
+    `prepare`, the host half, writes the schedule's value at the host's
+    count of updates (`count`) into `lr` before each update.  Leaves split
     over 'model' (`DTensor`s) are updated on their blocks, one tensor at a
-    time (the multi-tensor path takes no mix of `DTensor`s and tensors)."""
+    time (the multi-tensor path takes no mix of `DTensor`s and tensors),
+    and not capturable: their steps always run eagerly."""
 
     def __init__(self, params, lr: float, *, betas, weight_decay: float, eps: float = 1e-8,
                  schedule=None, clip_norm: float | None = None):
         self.leaves = tree_leaves(params)
-        split = any(is_sharded(p) for p in self.leaves)
-        self.adamw = torch.optim.AdamW(self.leaves, lr=lr, betas=betas, eps=eps,
-                                       weight_decay=weight_decay,
-                                       foreach=False if split else None)
-        for p in self.leaves:
-            self.adamw.state[p] = {"step": torch.tensor(0.0),
-                                   "exp_avg": torch.zeros_like(p),
-                                   "exp_avg_sq": torch.zeros_like(p)}
+        self._kw = dict(lr=lr, betas=betas, weight_decay=weight_decay, eps=eps,
+                        schedule=schedule, clip_norm=clip_norm)
         self._lr = lr
         self._schedule = schedule
-        self.scheduler = None
-        if schedule is not None:
-            self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-                self.adamw, lambda k: schedule(k) / lr)
         self.clip_norm = clip_norm
+        self.count = 0
+        split = any(is_sharded(p) for p in self.leaves)
+        dev = self.leaves[0].device
+        capturable = dev.type == "cuda" and not split
+        # float64 where AdamW is not capturable: the arithmetic of a Python
+        # float learning rate, bit for bit
+        self.lr = torch.tensor(self._lr_at(0), device=dev,
+                               dtype=torch.float32 if capturable else torch.float64)
+        self.adamw = torch.optim.AdamW(self.leaves, lr=self.lr,
+                                       betas=betas, eps=eps, weight_decay=weight_decay,
+                                       foreach=False if split else None, capturable=capturable)
+        step_dev = dev if capturable else "cpu"
+        for p in self.leaves:
+            self.adamw.state[p] = {"step": torch.zeros((), device=step_dev),
+                                   "exp_avg": torch.zeros_like(p),
+                                   "exp_avg_sq": torch.zeros_like(p)}
+
+    def _lr_at(self, count: int) -> float:
+        return self._lr if self._schedule is None else self._schedule(count)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> None:
         """One update from the leaves' .grad, then the grads are cleared."""
+        self.prepare()
+        self.update()
+
+    def prepare(self) -> None:
+        """The host half of a step: the schedule's learning rate at the
+        count of updates so far written into `lr`, and the count advanced."""
+        if self._schedule is not None:
+            self.lr.fill_(self._schedule(self.count))
+        self.count += 1
+
+    def update(self) -> None:
+        """The device half of a step: the update from the leaves' .grad,
+        then the grads are cleared.  No host synchronisation."""
         for p in self.leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.clip_norm is not None:
             clip_by_global_norm_([p.grad for p in self.leaves], self.clip_norm)
         self.adamw.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
         self.zero_grad()
 
     def state_tree(self) -> dict:
@@ -261,16 +293,55 @@ class Optimizer:
         st = self.adamw.state
         return {"adamw": [{k: st[p][k] for k in ("step", "exp_avg", "exp_avg_sq")}
                           for p in self.leaves],
-                "count": 0 if self.scheduler is None else int(self.scheduler.last_epoch)}
+                "count": 0 if self._schedule is None else self.count}
 
     def load_state_tree(self, tree: dict) -> None:
         for p, s in zip(self.leaves, tree["adamw"], strict=True):
             for k, v in s.items():
                 self.adamw.state[p][k].copy_(v)
-        if self.scheduler is not None:
-            self.scheduler.last_epoch = int(tree["count"])
-            for g in self.adamw.param_groups:
-                g["lr"] = self._schedule(int(tree["count"]))
+        self.count = int(tree["count"])
+
+    def scratch(self, params) -> "Optimizer":
+        """An optimizer with these settings and a copy of this one's state
+        over `params` (copies of the leaves, in the same tree): a compiled
+        step's warm-up calls run on it."""
+        opt = Optimizer(params, **self._kw)
+        opt.load_state_tree(self.state_tree())
+        return opt
+
+
+def compile_update(fn, params: tuple, optimizers: tuple, batch) -> graphs.CompiledStep:
+    """A compiled step of `fn(*params, *optimizers, batch)`, a step that
+    updates the leaves of each params tree with its optimizer (by position)
+    in place and returns its metrics: over the live leaves and optimizers
+    and a static copy of the batch, with the warm-up calls on scratch
+    copies of both (the leaves and their optimizer states stay as they
+    are).  The grads are cleared first (PyTorch's whole-network capture:
+    the graph's pool then owns the grads its backward pass makes)."""
+    for opt in optimizers:
+        opt.zero_grad()
+    scratch = tuple(tree_map(lambda p: p.detach().clone().requires_grad_(p.requires_grad), t)
+                    for t in params)
+    scratch_opts = tuple(opt.scratch(t) for opt, t in zip(optimizers, scratch, strict=True))
+    static = graphs.clone_tree(batch)
+    return graphs.CompiledStep(fn, (*params, *optimizers, static),
+                               warmup_args=(*scratch, *scratch_opts, static))
+
+
+def run_update(key, fn, params: tuple, optimizers: tuple, batch):
+    """`fn` (as `compile_update` takes it) as a compiled step from the
+    step cache, keyed by `key`, the identity of the leaves and the
+    optimizers, and the batch's signature: each optimizer's host half
+    (`prepare`), the batch copied in, the step run.  Returns its metrics,
+    cloned."""
+    key = (key, graphs.identity(*params), tuple(id(o) for o in optimizers),
+           graphs.signature(batch))
+    step = graphs.CACHE.get(key, lambda: compile_update(fn, params, optimizers, batch))
+    with step.lock:
+        for opt in optimizers:
+            opt.prepare()
+        graphs.copy_tree_(step.args[-1], batch)
+        return graphs.clone_tree(step())
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -303,18 +374,38 @@ def make_optimizer(params, lr: float = 2e-4, weight_decay: float = 1e-2,
 
 
 def train_step(params, optimizer: Optimizer, batch, *, cfg, f0_weight: float = 1.0,
-               soft_pitch: bool = False, periodicity_weight: float = 0.0, mesh=None):
+               soft_pitch: bool = False, periodicity_weight: float = 0.0, mesh=None,
+               jit: bool | None = None):
     """One distillation step (`distill.py:196`): the loss, its gradient and
     one update of the leaves in place.  batch: {audio16 [B, T*160],
     target24 [B, T*240], cond[, f0_bin [B, T]]}.  Returns (params,
     optimizer, metrics), the metrics detached tensors.
+
+    Compiled (`jit` None or True without a mesh; `graphs.resolve_jit`),
+    the forward pass, the backward pass, the clip and the AdamW update are
+    one step of the step cache (`run_update`): one CUDA graph on the card,
+    keyed by the identity of the leaves and the optimizer, the batch
+    copied into its static tensors; `jit=False` runs it op by op.
 
     With a `mesh` (`parallel/mesh.py`) whose 'streams' axis has several
     ranks, the batch is this rank's rows (`shard_tree`), the loss is the
     whole batch's and the gradients are summed over 'streams' before the
     update, so every rank's parameters stay the same; weights split over
     'model' (`DTensor`s) keep their gradients on their blocks."""
-    group = dp_group(mesh)
+    kw = dict(cfg=cfg, f0_weight=f0_weight, soft_pitch=soft_pitch,
+              periodicity_weight=periodicity_weight)
+    if not graphs.resolve_jit(jit, mesh):
+        metrics = _train_step(params, optimizer, batch, optimizer.step, group=dp_group(mesh),
+                              **kw)
+        return params, optimizer, metrics
+    metrics = run_update(("train_step", cfg, f0_weight, soft_pitch, periodicity_weight),
+                         lambda p, opt, b: _train_step(p, opt, b, opt.update, **kw),
+                         (params,), (optimizer,), batch)
+    return params, optimizer, metrics
+
+
+def _train_step(params, optimizer, batch, update, *, cfg, f0_weight, soft_pitch,
+                periodicity_weight, group=None):
     optimizer.zero_grad()
     loss, aux = distillation_loss(
         params, cfg, batch["audio16"], batch["target24"], batch["cond"],
@@ -323,5 +414,5 @@ def train_step(params, optimizer: Optimizer, batch, *, cfg, f0_weight: float = 1
     loss.backward()
     if group is not None:
         all_reduce_grads_(optimizer.leaves, group)
-    optimizer.step()
-    return params, optimizer, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    update()
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}

@@ -11,7 +11,9 @@ from a frozen teacher's taps at its own boundary.
 
 `module_step` takes an optimizer over the module's leaves only (for
 example `Optimizer(student[module], lr, betas=(0.9, 0.999),
-weight_decay=0.0)`, optax's adam) and updates them in place.
+weight_decay=0.0)`, optax's adam) and updates them in place.  The steps
+and the diagnostics are compiled by default, as the JAX package jits them
+(`runtime/graphs.py`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..models import chain, phone_extractor, pitch_estimator, waveform_generator
-from .distill import multi_resolution_stft_loss, trainer_config
+from ..runtime import graphs
+from .distill import multi_resolution_stft_loss, run_update, trainer_config
 
 
 def teacher_taps(params, cfg, audio16, cond):
@@ -68,15 +71,31 @@ def wg_loss(student_wg_params, cfg, taps, cond):
     return l1 + 10.0 * l2 + 0.1 * multi_resolution_stft_loss(audio24, t)
 
 
-def module_step(student_params, opt, teacher_params, batch, *, cfg, module: str):
+def module_step(student_params, opt, teacher_params, batch, *, cfg, module: str,
+                jit: bool | None = None):
     """One distillation step of one module ("phone", "pitch" or "wg";
     `feature_distill.py:124`): the teacher's taps, the module's loss, its
     gradient and one update of `opt` (over student_params[module]'s
-    leaves).  Returns (student_params, opt, {"loss"})."""
+    leaves).  Returns (student_params, opt, {"loss"}).  Compiled (`jit`
+    None or True), one step of the step cache per module
+    (`distill.run_update`: one CUDA graph on the card); `jit=False` runs
+    it op by op."""
+    if not graphs.resolve_jit(jit):
+        loss = _module_step(student_params[module], opt, teacher_params, batch, opt.step,
+                            cfg=cfg, module=module)
+    else:
+        loss = run_update(
+            ("module_step", module, cfg, graphs.identity(teacher_params)),
+            lambda p, o, b: _module_step(p, o, teacher_params, b, o.update, cfg=cfg,
+                                         module=module),
+            (student_params[module],), (opt,), batch)
+    return student_params, opt, {"loss": loss}
+
+
+def _module_step(p, opt, teacher_params, batch, update, *, cfg, module):
     audio16, cond = batch["audio16"], batch["cond"]
     with torch.no_grad():
         taps = teacher_taps(teacher_params, cfg, audio16, cond)
-    p = student_params[module]
     if module == "phone":
         loss = phone_loss(p, cfg, audio16, taps["phone"], cond)
     elif module == "pitch":
@@ -85,16 +104,38 @@ def module_step(student_params, opt, teacher_params, batch, *, cfg, module: str)
         loss = wg_loss(p, cfg, taps, cond)
     opt.zero_grad()
     loss.backward()
-    opt.step()
-    return student_params, opt, {"loss": loss.detach()}
+    update()
+    return loss.detach()
 
 
-@torch.no_grad()
-def end_to_end_error(student_params, teacher_params, batch, *, cfg):
+def end_to_end_error(student_params, teacher_params, batch, *, cfg, jit: bool | None = None):
     """Waveform error of the student chain against the teacher's, with
     per-stage diagnostics (`feature_distill.py:148`): the student vocoder
     from the teacher's taps (wg only), and from the student's features
-    with the teacher's bins."""
+    with the teacher's bins.  Compiled (`jit` None or True) through the
+    step cache, keyed by the identity of both chains' parameters."""
+    return _diagnostics(_end_to_end_error, "end_to_end_error", student_params,
+                        teacher_params, batch, cfg, jit)
+
+
+def end_to_end_error_soft(student_params, teacher_params, batch, *, cfg,
+                          jit: bool | None = None):
+    """Student-against-teacher waveform parity with both chains in the
+    soft-pitch mode (`feature_distill.py:196`), compiled as
+    `end_to_end_error`."""
+    return _diagnostics(_end_to_end_error_soft, "end_to_end_error_soft", student_params,
+                        teacher_params, batch, cfg, jit)
+
+
+def _diagnostics(fn, name, student_params, teacher_params, batch, cfg, jit):
+    if not graphs.resolve_jit(jit):
+        return fn(student_params, teacher_params, batch, cfg)
+    return graphs.call((name, cfg, graphs.identity(student_params, teacher_params)),
+                       lambda b: fn(student_params, teacher_params, b, cfg), batch)
+
+
+@torch.no_grad()
+def _end_to_end_error(student_params, teacher_params, batch, cfg):
     audio16, cond = batch["audio16"], batch["cond"]
     t = teacher_taps(teacher_params, cfg, audio16, cond)
     b = audio16.shape[0]
@@ -125,9 +166,7 @@ def end_to_end_error(student_params, teacher_params, batch, *, cfg):
 
 
 @torch.no_grad()
-def end_to_end_error_soft(student_params, teacher_params, batch, *, cfg):
-    """Student-against-teacher waveform parity with both chains in the
-    soft-pitch mode (`feature_distill.py:196`)."""
+def _end_to_end_error_soft(student_params, teacher_params, batch, cfg):
     audio16, cond = batch["audio16"], batch["cond"]
     b = audio16.shape[0]
     dev = audio16.device

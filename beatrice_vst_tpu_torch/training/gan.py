@@ -11,7 +11,8 @@ batch.  Gradients are taken with `torch.autograd.grad` with respect to the
 player being updated only, which is where the JAX package's
 `stop_gradient`s sit (`gan.py:48-49, 77-78, 86`): the critic's loss does
 not reach the generator, and the real audio's feature maps are constants
-of the generator's loss.
+of the generator's loss.  `gan_train_step` is compiled by default, as the
+JAX package jits it (`runtime/graphs.py`).
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import torch
 from ..models import chain
 from ..parallel.collectives import all_reduce_grads_, dp_group, global_mean
 from . import discriminator
+from ..runtime import graphs
 from .distill import (Optimizer, multi_resolution_stft_loss, periodicity_loss,
-                      pitch_supervision_losses, trainer_config)
+                      pitch_supervision_losses, run_update, trainer_config)
 
 LAMBDA_REC = 15.0
 LAMBDA_FM = 2.0
@@ -113,25 +115,42 @@ def set_grads(loss, opt: Optimizer, group=None) -> None:
 
 def gan_train_step(gen_params, disc_params, gen_opt: Optimizer, disc_opt: Optimizer, batch,
                    *, cfg, compute_dtype=None, soft_pitch: bool = False,
-                   periodicity_weight: float = 0.0, mesh=None):
+                   periodicity_weight: float = 0.0, mesh=None, jit: bool | None = None):
     """One critic step, then one generator step on the same batch
     (`gan.py:111`); the leaves are updated in place.  batch: the
     distillation batch.  Returns (gen_params, disc_params, gen_opt,
-    disc_opt, metrics), the metrics detached.  With a `mesh` whose
-    'streams' axis has several ranks, data-parallel as
+    disc_opt, metrics), the metrics detached.  Compiled (`jit` None or True
+    without a mesh), the no-grad fake, the critic's grads and update and
+    the generator's grads and update are one step of the step cache
+    (`distill.run_update`: one CUDA graph on the card, whose pool owns the
+    grads `set_grads` assigns); `jit=False` runs them op by op.  With a
+    `mesh` whose 'streams' axis has several ranks, data-parallel as
     `distill.train_step`: this rank's rows, the whole batch's losses, the
     gradients summed over 'streams' before each update."""
-    group = dp_group(mesh)
+    kw = dict(cfg=cfg, compute_dtype=compute_dtype, soft_pitch=soft_pitch,
+              periodicity_weight=periodicity_weight)
+    if not graphs.resolve_jit(jit, mesh):
+        metrics = _gan_step(gen_params, disc_params, gen_opt, disc_opt, batch, gen_opt.step,
+                            disc_opt.step, group=dp_group(mesh), **kw)
+    else:
+        metrics = run_update(
+            ("gan_train_step", cfg, compute_dtype, soft_pitch, periodicity_weight),
+            lambda g, d, go, do, b: _gan_step(g, d, go, do, b, go.update, do.update, **kw),
+            (gen_params, disc_params), (gen_opt, disc_opt), batch)
+    return gen_params, disc_params, gen_opt, disc_opt, metrics
+
+
+def _gan_step(gen_params, disc_params, gen_opt, disc_opt, batch, gen_update, disc_update, *,
+              cfg, compute_dtype, soft_pitch, periodicity_weight, group=None):
     with torch.no_grad():
         fake = _generate(gen_params, cfg, batch, compute_dtype, soft_pitch=soft_pitch)
     d_loss = disc_loss(disc_params, batch["target24"], fake, batch.get("f0_bin"), group)
     set_grads(d_loss, disc_opt, group)
-    disc_opt.step()
+    disc_update()
 
     g_loss, aux = gen_loss(gen_params, disc_params, cfg, batch, compute_dtype, soft_pitch,
                            periodicity_weight, group)
     set_grads(g_loss, gen_opt, group)
-    gen_opt.step()
-    metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-               **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}}
-    return gen_params, disc_params, gen_opt, disc_opt, metrics
+    gen_update()
+    return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
+            **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}}

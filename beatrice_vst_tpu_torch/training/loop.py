@@ -15,15 +15,18 @@ import torch
 from ..device import resolve_device
 from ..models import chain
 from ..models.io import params_from_numpy
+from ..runtime import graphs
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .distill import make_optimizer, train_step, trainable, tree_leaves
 
 
 def make_teacher_batcher(cfg, teacher_params, bank, *, batch: int, frames: int, seed: int = 0,
-                         device="cuda"):
+                         device="cuda", jit: bool | None = None):
     """Yield {audio16, target24, cond} batches: sawtooth-plus-noise inputs
     from a numpy generator (the JAX package's draws, `loop.py:27-54`)
-    converted by the frozen teacher, without a gradient."""
+    converted by the frozen teacher, without a gradient.  The teacher's
+    forward is compiled (`jit` None or True; the JAX package jits it,
+    `loop.py:35`) through the step cache; `jit=False` runs it op by op."""
     from ..runtime.offline import ConversionSettings, build_cond
 
     dev = resolve_device(device)
@@ -32,6 +35,12 @@ def make_teacher_batcher(cfg, teacher_params, bank, *, batch: int, frames: int, 
     cond = build_cond(None, cfg, bank, ConversionSettings(target_speaker=0), batch,
                       raw_kv=True)
     rng = np.random.default_rng(seed)
+    compiled = graphs.resolve_jit(jit)
+
+    @torch.no_grad()
+    def teacher(audio16):
+        return chain.apply(teacher_params, cfg, audio16, chain.init_state(cfg, (batch,), dev),
+                           cond)[0]
 
     def batcher():
         while True:
@@ -42,9 +51,11 @@ def make_teacher_batcher(cfg, teacher_params, bank, *, batch: int, frames: int, 
             saw = 2.0 * ((f0 * t[None, :] + phase) % 1.0) - 1.0
             noise = rng.standard_normal((batch, n)) * 0.05
             audio16 = torch.from_numpy((0.3 * saw + noise).astype(np.float32)).to(dev)
-            with torch.no_grad():
-                target24 = chain.apply(teacher_params, cfg, audio16,
-                                       chain.init_state(cfg, (batch,), dev), cond)[0]
+            if compiled:
+                target24 = graphs.call(("teacher", cfg, graphs.identity(teacher_params, cond)),
+                                       teacher, audio16)
+            else:
+                target24 = teacher(audio16)
             yield {"audio16": audio16, "target24": target24, "cond": cond}
 
     return batcher()
@@ -64,7 +75,8 @@ def _restore_into(ckpt_dir: str, tree):
 def train(params, cfg, batches, *, steps: int, lr: float = 2e-4, log_every: int = 10,
           log_fn=print, ckpt_dir: str | None = None, save_every: int = 500,
           resume: bool = False, f0_weight: float = 1.0, soft_pitch: bool = False,
-          lr_schedule: bool = False, periodicity_weight: float = 0.0, device="cuda"):
+          lr_schedule: bool = False, periodicity_weight: float = 0.0, device="cuda",
+          jit: bool | None = None):
     """Run `steps` of distillation (`loop.py:57`); returns (params,
     history [(step, loss)]).  params: the JAX package's tree or the
     port's (numpy arrays or tensors), trained as fresh leaf tensors on
@@ -72,7 +84,9 @@ def train(params, cfg, batches, *, steps: int, lr: float = 2e-4, log_every: int 
     saved every `save_every` steps and at the end; `resume` continues from
     the latest checkpoint.  A checkpoint's step is the number of updates
     it holds (the JAX loop names its periodic checkpoints one update
-    short, so that a run resumed from one repeats a step)."""
+    short, so that a run resumed from one repeats a step).  Each step is
+    `train_step` with `jit` (compiled by default: the batch copied into
+    the static tensors of one CUDA graph on the card)."""
     params = trainable(params, device)
     optimizer = make_optimizer(params, lr, total_steps=steps if lr_schedule else None)
     start = 0
@@ -86,7 +100,7 @@ def train(params, cfg, batches, *, steps: int, lr: float = 2e-4, log_every: int 
     for step, batch in zip(range(start, steps), batches):
         params, optimizer, metrics = train_step(
             params, optimizer, batch, cfg=cfg, f0_weight=f0_weight, soft_pitch=soft_pitch,
-            periodicity_weight=periodicity_weight)
+            periodicity_weight=periodicity_weight, jit=jit)
         if step % log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])
             history.append((step, loss))
@@ -106,11 +120,13 @@ def train(params, cfg, batches, *, steps: int, lr: float = 2e-4, log_every: int 
 def train_gan(params, cfg, batches, *, steps: int, lr: float = 2e-4, seed: int = 0,
               log_every: int = 10, log_fn=print, ckpt_dir: str | None = None,
               save_every: int = 500, resume: bool = False, compute_dtype=None,
-              soft_pitch: bool = False, periodicity_weight: float = 0.0, device="cuda"):
+              soft_pitch: bool = False, periodicity_weight: float = 0.0, device="cuda",
+              jit: bool | None = None):
     """Adversarial training (`loop.py:110`): least-squares GAN with feature
     matching on top of the reconstruction objective.  Returns (params,
     history [(step, g_loss)]); the critics, from `discriminator.init`
-    seeded with `seed`, live only in the checkpoint."""
+    seeded with `seed`, live only in the checkpoint.  Each step is
+    `gan_train_step` with `jit` (compiled by default)."""
     from . import discriminator
     from .gan import gan_train_step, make_gan_optimizers
 
@@ -135,7 +151,7 @@ def train_gan(params, cfg, batches, *, steps: int, lr: float = 2e-4, seed: int =
         params, disc_params, gen_opt, disc_opt, metrics = gan_train_step(
             params, disc_params, gen_opt, disc_opt, batch, cfg=cfg,
             compute_dtype=compute_dtype, soft_pitch=soft_pitch,
-            periodicity_weight=periodicity_weight)
+            periodicity_weight=periodicity_weight, jit=jit)
         if step % log_every == 0 or step == steps - 1:
             g = float(metrics["g_loss"])
             history.append((step, g))

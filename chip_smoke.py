@@ -42,7 +42,10 @@ Phases, each printing one line with its seconds:
                 torch.profiler.  Every phase below ticks through the graph
                 unless it says otherwise; an engine's GRAPH_WARMUP_TICKS
                 warm-up ticks launch the form once each, and the serving
-                checks count them.
+                checks count them.  Offline conversion, seqpar, parity's
+                streaming half and the trainers run their compiled steps
+                (runtime/graphs.py, the default) in every phase below
+                unless it says jit=False.
   5. engine  -- one line per configuration (ENGINE_CONFIGS: per-stream f32;
                 the JAX default, slot bank and shared-bank VQ in f32; and
                 bf16 with the int8 slot bank and codebook): the port's
@@ -169,7 +172,44 @@ Phases, each printing one line with its seconds:
                 signal at 4 and 8 segments against the port's
                 convert_utterance, each at atol 1e-3; audio seconds per
                 second of each, on the second of two runs.
- 18. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
+ 18. offline_graph -- the compiled offline steps (runtime/graphs.py: CUDA
+                graphs of the chunk step, the whole-utterance step and the
+                resamplers, convert_utterance's default) against eager
+                (jit=False) on klatt8: 20 s at 44.1 kHz chunked and 1.5 s
+                whole, f32 and bf16, in the order eager, compiled (its
+                first call captures), eager, compiled, compiled, eager:
+                max |d| <= 1e-6 (0 expected), audio seconds per second of
+                each, the first compiled call's seconds, captures and
+                capture ms, peak MiB of each and the MiB the compiled steps
+                keep; then klatt8 and klatt8_r6 (the same shapes), each
+                compiled conversion equal to its own eager one.
+ 19. seqpar_graph -- convert_utterance_sp at 4 segments on 20 s, compiled
+                (both passes and the resamplers) against eager, as above.
+ 20. parity_graph -- the kernel inside a compiled path: run_parity on klatt8 at
+                T = 25, capacity 256, with the compiled streaming half (one
+                CUDA graph over the donated tick, replayed once a frame)
+                against the eager one, in the order graph, eager, eager,
+                graph, the launch counts set to 0 before each run and read
+                after: each report within 1e-3 and the compiled one's max
+                |d| equal to the eager one's, the f32 form launched once
+                per frame by the replays, twice in the capture (the
+                warm-up ticks), never in the chunk tick; span per 10 ms of
+                audio of each streaming half, the capture's host ms.
+ 21. train_graph -- `train` and `train_gan` at batch 8 x 32 frames, 8
+                steps each over the same batches of the compiled teacher,
+                compiled against eager under deterministic algorithms
+                (every loss within 1e-4 relative), steps per second of each
+                (the compiled run with and without its capture), capture
+                ms, peak MiB; a compiled run checkpointed at step 4 and
+                resumed repeats the straight compiled run bitwise; then
+                golden.run_train through the compiled steps against the
+                train golden file (golden.train_gate).
+ 22. feature_distill_graph -- module_step of each module (klatt8 teacher,
+                a chain.init student, batch 8 x 32 frames), compiled
+                against eager over 4 steps (losses within 1e-4 relative),
+                step ms of each; end_to_end_error and end_to_end_error_soft
+                compiled against eager.
+ 23. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
                 (parallel/mesh.py:spawn_cpu_ranks) whose ranks share the one
                 card and each compute on it, every case in one spawn
                 (parallel/checks.py), then:
@@ -202,17 +242,19 @@ Phases, each printing one line with its seconds:
                 Every mesh path's ranks each launch the configuration's form
                 once a tick.  Two ranks on one card measure processes
                 overlapping on one device, not multi-GPU scaling.
- 19. profile -- only with `--profile DIR`: where the engine's tick time
+ 24. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
 drove it, a graph's replays included: the graph phases (eager and graph
 engines), the engine configurations, the morph engines, the streaming
 halves of parity, the older versions' engines, the in-process serving
-paths serve_golden, serve_pipeline and serve_ws, and the mesh paths
-mesh_golden, mesh_tp, mesh_engine and mesh_nccl, summed over their ranks;
-the phases from train_golden to seqpar launch neither form), the card
-line, and the last line
+paths serve_golden, serve_pipeline and serve_ws, the compiled streaming
+halves of parity_graph (their replays and their captures' warm-up
+ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine and
+mesh_nccl, summed over their ranks; the phases from train_golden to
+seqpar_graph and from train_graph to feature_distill_graph launch
+neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -687,7 +729,12 @@ class Spans:
 
 def check_parity(report, spans, label):
     """The parity gate and the f32 kernel's launches: one per streaming
-    tick, none in the chunk tick.  Returns the f32 form's launches."""
+    tick (a replay of the compiled streaming tick counts its launch), none
+    in the chunk tick, and with the compiled streaming half
+    GRAPH_WARMUP_CALLS in its capture (the warm-up ticks).  Returns the
+    f32 form's launches."""
+    from beatrice_vst_tpu_torch.runtime.graphs import GRAPH_WARMUP_CALLS
+
     if not report.passed:
         raise AssertionError(f"{label}: {report}")
     n = report.n_frames
@@ -695,7 +742,11 @@ def check_parity(report, spans, label):
     if stream != {**dict.fromkeys(stream, 0), "float32": n} or sum(chunk.values()) != 0:
         raise AssertionError(f"{label}: kernel launches {stream} in {n} streaming ticks and "
                              f"{chunk} in the chunk tick; expected {n} f32 and 0")
-    return stream["float32"]
+    capture = spans.out.get("capture", {}).get("launches", {"float32": GRAPH_WARMUP_CALLS})
+    if capture != {**dict.fromkeys(capture, 0), "float32": GRAPH_WARMUP_CALLS}:
+        raise AssertionError(f"{label}: kernel launches {capture} in the capture of the "
+                             f"streaming tick, expected {GRAPH_WARMUP_CALLS} f32")
+    return stream["float32"] + (capture["float32"] if "capture" in spans.out else 0)
 
 
 def golden_gate(label, form, got, f32_ref, bf16_ref):
@@ -1936,7 +1987,10 @@ def seqpar_phase(device, card):
                                                        convert_utterance_sp)
 
     t0 = time.perf_counter()
-    cfg, params, bank = klatt8_numpy()
+    cfg, _, _ = klatt8_numpy()
+    # tensors on the card: the compiled steps (keyed by the parameters'
+    # identity) of the first run serve the second
+    params, bank = klatt8(device)
     settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
     rate = golden.OFFLINE_RATE
     reset_launch_counts()
@@ -1970,6 +2024,382 @@ def seqpar_phase(device, card):
     log("seqpar", t0, model="klatt8", rate=rate, warmup_frames=chain_receptive_field_frames(cfg),
         golden_vs=vs_golden, audio_seconds=SEQPAR_SECONDS, sequential_audio_seconds_per_s=ref_rate,
         segments=runs, tol=golden.F32_ATOL, kernel_launches=counts, nvidia_smi=card)
+
+
+# ---- the compiled offline, seqpar, parity and training steps ----
+
+# name -> (seconds, chunk_frames: None auto (256-frame chunks beyond 384
+# frames), 0 whole; compute dtype)
+OFFLINE_GRAPH_CASES = {
+    "chunked_20s_f32": (20.0, None, None),
+    "chunked_20s_bf16": (20.0, None, "bfloat16"),
+    "whole_1.5s_f32": (1.5, 0, None),
+    "whole_1.5s_bf16": (1.5, 0, "bfloat16"),
+}
+SEQPAR_GRAPH_SEGMENTS = 4
+TRAIN_GRAPH_STEPS = 8
+TRAIN_GRAPH_RESUME_STEP = 4
+# compiled against eager training, every logged loss (relative): the same
+# kernels in the same order under deterministic algorithms (0 expected);
+# the bound is the golden file's loss gate, golden.TRAIN_LOSS_RTOL
+TRAIN_GRAPH_RTOL = 1e-4
+FEATURE_GRAPH_STEPS = 4
+SWAP_MODEL_DIR = os.path.join(HERE, "models_demo", "klatt8_r6")
+
+
+def compiled_steps_stats():
+    """The steps in the step cache: how many and their capture ms."""
+    from beatrice_vst_tpu_torch.runtime import graphs
+
+    steps = graphs.CACHE.steps()
+    return {"captures": len(steps), "capture_ms": [s.capture_ms for s in steps],
+            "capture_ms_total": sum(s.capture_ms for s in steps)}
+
+
+def timed_call(fn):
+    """(fn's result, host seconds to the end of its device work, peak MiB
+    above the memory live before, MiB still allocated after above it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return (out, seconds, (torch.cuda.max_memory_allocated() - live) / 2**20,
+            (torch.cuda.memory_allocated() - live) / 2**20)
+
+
+def graph_vs_eager(run, audio_seconds):
+    """`run(jit)` compiled against eager: eager first (it builds the lazily
+    made constants), the compiled first call (it captures; the step cache
+    emptied before it), then eager, compiled, compiled, eager.  Every
+    output against the first eager one (max |d|); audio seconds per second
+    of each on the median of its two timed calls; the first compiled
+    call's seconds (capture included), captures and capture ms; each one's
+    peak MiB and the MiB the compiled steps keep."""
+    from beatrice_vst_tpu_torch.runtime import graphs
+
+    graphs.CACHE.clear()
+    ref, eager_first_s, eager_peak, _ = timed_call(lambda: run(False))
+    got, first_s, capture_peak, kept = timed_call(lambda: run(True))
+    stats = compiled_steps_stats()
+    diff = float(np.abs(got - ref).max())
+    seconds = {"graph": [], "eager": []}
+    replay_peak = 0.0
+    for jit in (False, True, True, False):
+        y, s, peak, _ = timed_call(lambda: run(jit))
+        seconds["graph" if jit else "eager"].append(s)
+        if jit:
+            replay_peak = max(replay_peak, peak)
+        diff = max(diff, float(np.abs(y - ref).max()))
+    if not diff <= GRAPH_TOL:
+        raise AssertionError(f"compiled vs eager: max|d| {diff} > {GRAPH_TOL}")
+    if not np.isfinite(ref).all() or np.abs(ref).max() <= 1e-3:
+        raise AssertionError("compiled vs eager: output not finite or silent")
+    return ref, {
+        "max_abs_diff_graph_vs_eager": diff, "tol": GRAPH_TOL,
+        "graph_audio_seconds_per_s": audio_seconds / float(np.median(seconds["graph"])),
+        "eager_audio_seconds_per_s": audio_seconds / float(np.median(seconds["eager"])),
+        "graph_seconds": seconds["graph"], "eager_seconds": seconds["eager"],
+        "first_graph_call_s": first_s, "first_eager_call_s": eager_first_s, **stats,
+        "eager_peak_mib": eager_peak, "capture_peak_mib": capture_peak,
+        "replay_peak_mib": replay_peak, "compiled_steps_kept_mib": kept}
+
+
+def offline_graph_phase(device, card):
+    """convert_utterance compiled (the default) against eager (jit=False)
+    on klatt8: 20 s at 44.1 kHz chunked and 1.5 s whole, f32 and bf16
+    (graph_vs_eager); then the two-model check: klatt8 and klatt8_r6 (the
+    same shapes), each compiled conversion bitwise equal to its own eager
+    one and the two models' outputs apart.  The fused upsampler never
+    launched (T > 1 runs the stage loop)."""
+    import torch
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.models.io import load_model_dir, params_from_numpy
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+
+    t0 = time.perf_counter()
+    params, bank = klatt8(device)
+    cfg = VoiceConverterConfig.for_version(V20RC0)
+    settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
+    rate = golden.OFFLINE_RATE
+    reset_launch_counts()
+    cases = {}
+    for name, (seconds, chunk, dtype) in OFFLINE_GRAPH_CASES.items():
+        sig = golden.offline_signal(seconds=seconds)
+        cd = getattr(torch, dtype) if dtype else None
+        _, cases[name] = graph_vs_eager(
+            lambda jit: convert_utterance(params, cfg, bank, sig, rate, settings,
+                                          compute_dtype=cd, chunk_frames=chunk, device=device,
+                                          jit=jit), seconds)
+    sig = golden.offline_signal()
+    models = {}
+    for name, d in (("klatt8", MODEL_DIR), ("klatt8_r6", SWAP_MODEL_DIR)):
+        _, mcfg, mparams, mbank = load_model_dir(d)
+        mparams = params_from_numpy(mparams, device)
+        got, want = (convert_utterance(mparams, mcfg, mbank, sig, rate, settings,
+                                       chunk_frames=golden.OFFLINE_CHUNK_FRAMES, device=device,
+                                       jit=jit) for jit in (True, False))
+        diff = float(np.abs(got - want).max())
+        if not diff <= GRAPH_TOL:
+            raise AssertionError(f"offline {name}: compiled vs its own eager run: max|d| {diff}")
+        models[name] = got
+    apart = float(np.abs(models["klatt8"] - models["klatt8_r6"]).max())
+    if not apart > 1e-3:
+        raise AssertionError(f"offline: klatt8 and klatt8_r6 convert alike ({apart}): a step "
+                             "read the other model's parameters")
+    counts = no_upsampler_launches("offline_graph")
+    log("offline_graph", t0, model="klatt8", rate=rate, cases=cases,
+        two_models={"max_abs_diff_each_vs_own_eager": 0.0, "max_abs_diff_between": apart},
+        kernel_launches=counts, nvidia_smi=card)
+
+
+def seqpar_graph_phase(device, card):
+    """convert_utterance_sp at SEQPAR_GRAPH_SEGMENTS segments on 20 s of
+    klatt8 input, compiled (the default without a mesh: both passes and
+    the resamplers) against eager (graph_vs_eager)."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings
+    from beatrice_vst_tpu_torch.runtime.seqpar import convert_utterance_sp
+
+    t0 = time.perf_counter()
+    params, bank = klatt8(device)
+    cfg = VoiceConverterConfig.for_version(V20RC0)
+    settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
+    sig = golden.offline_signal(seconds=SEQPAR_SECONDS)
+    reset_launch_counts()
+    _, out = graph_vs_eager(
+        lambda jit: convert_utterance_sp(params, cfg, bank, sig, golden.OFFLINE_RATE, settings,
+                                         n_segments=SEQPAR_GRAPH_SEGMENTS, device=device,
+                                         jit=jit), SEQPAR_SECONDS)
+    counts = no_upsampler_launches("seqpar_graph")
+    log("seqpar_graph", t0, model="klatt8", segments=SEQPAR_GRAPH_SEGMENTS,
+        audio_seconds=SEQPAR_SECONDS, **out, kernel_launches=counts, nvidia_smi=card)
+
+
+def parity_graph_phase(device, card):
+    """The kernel inside a compiled path: run_parity on klatt8, slots f32, capacity
+    256, T = 25, with the compiled streaming half (jit=True: one CUDA graph
+    over the donated tick, replayed once a frame) against the eager one
+    (jit=False), in the order graph, eager, eager, graph, the launch counts
+    set to 0 just before each compiled run and read just after.  Gates:
+    each report within PARITY_TOL, the compiled report's max |d| and RMS
+    equal to the eager one's (the same streaming outputs), the f32 form
+    launched once per frame in the streaming ticks (replays counted),
+    GRAPH_WARMUP_CALLS times in the capture and never in the chunk tick.
+    Reported: each half's span per 10 ms of audio, host ms, the capture's
+    span and host ms, peak MiB.  Returns the f32 form's launches of the
+    compiled runs."""
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+    from beatrice_vst_tpu_torch.parity import run_parity
+
+    t0 = time.perf_counter()
+    params, bank = klatt8(device)
+    cfg = VoiceConverterConfig.for_version(V20RC0)
+    audio = utterance(engine_audio(device, CHUNK))
+    runs = {"graph": [], "eager": []}
+    reports = {}
+    launches = 0
+    for jit in (True, False, False, True):
+        spans = Spans()
+        reset_launch_counts()
+        report = run_parity(params, cfg, bank, audio, tolerance=PARITY_TOL,
+                            controls=PARITY_CONTROLS, device=device, timer=spans, jit=jit)
+        n = check_parity(report, spans, f"parity_graph (jit={jit})")
+        name = "graph" if jit else "eager"
+        if jit:
+            launches += n
+        reports.setdefault(name, report)
+        runs[name].append({f"{half}_{k}": v for half, s in spans.out.items()
+                           for k, v in s.items() if k != "launches"}
+                          | {f"{half}_launches": s["launches"]["float32"]
+                             for half, s in spans.out.items()})
+    g, e = reports["graph"], reports["eager"]
+    if (g.max_abs_diff, g.rms_diff) != (e.max_abs_diff, e.rms_diff):
+        raise AssertionError(f"parity_graph: compiled {g} vs eager {e}")
+    timed = {name: r[-1] for name, r in runs.items()}
+    log("parity_graph", t0, model="klatt8", config="slots_f32", capacity=CAPACITY,
+        frames=CHUNK, tol=PARITY_TOL, max_abs_diff=g.max_abs_diff, rms_diff=g.rms_diff,
+        launches_graph_runs=launches, runs=runs,
+        stream_span_ms_per_10ms_audio={name: t["stream_span_ms"] / CHUNK
+                                       for name, t in timed.items()},
+        capture_host_ms=timed["graph"]["capture_host_ms"], nvidia_smi=card)
+    return launches
+
+
+def _train_graph_run(device, kind, params, cfg, batches, steps, **kw):
+    """`train` or `train_gan` over `batches`: (history, host seconds,
+    peak MiB above the memory live before, the compiled steps' capture
+    ms)."""
+    from beatrice_vst_tpu_torch.runtime import graphs
+    from beatrice_vst_tpu_torch.training import train, train_gan
+
+    fn = train_gan if kind == "gan" else train
+    graphs.CACHE.clear()
+    history, seconds, peak, _ = timed_call(
+        lambda: fn(params, cfg, iter(batches), steps=steps, log_every=1,
+                   log_fn=lambda *_: None, device=device, **kw)[1])
+    return history, seconds, peak, compiled_steps_stats()["capture_ms_total"]
+
+
+def train_graph_phase(device, card):
+    """`train` and `train_gan` on klatt8 at the CLI's defaults (batch 8,
+    32 frames), compiled (the default: one CUDA graph a step) against
+    eager (jit=False), TRAIN_GRAPH_STEPS steps over the same batches of
+    the compiled teacher (make_teacher_batcher, its first batches against
+    the eager teacher's), deterministic algorithms on: every step's loss
+    within TRAIN_GRAPH_RTOL of the eager run's; steps per second of each
+    (the compiled one without its capture, and with it), capture ms, peak
+    MiB; a compiled run checkpointed at TRAIN_GRAPH_RESUME_STEP and
+    resumed repeats the straight compiled run's losses and parameters
+    bitwise; then golden.run_train through the compiled steps against
+    tests/data/torch_train_golden.npz (golden.train_gate).  The fused
+    upsampler never launched."""
+    import tempfile
+
+    import torch
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.models import chain
+    from beatrice_vst_tpu_torch.training import make_teacher_batcher
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    teacher = chain.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    reset_launch_counts()
+
+    def batcher(jit):
+        return make_teacher_batcher(cfg, teacher, bank, batch=TRAIN_BATCH, frames=TRAIN_FRAMES,
+                                    seed=0, device=device, jit=jit)
+
+    compiled, eager = batcher(True), batcher(False)
+    batches = [next(compiled) for _ in range(TRAIN_GRAPH_STEPS)]
+    teacher_diff = max(float((batches[k]["target24"] - next(eager)["target24"]).abs().max())
+                       for k in range(2))
+    if not teacher_diff <= GRAPH_TOL:
+        raise AssertionError(f"train_graph: compiled teacher vs eager: max|d| {teacher_diff}")
+    audio_s = TRAIN_BATCH * TRAIN_FRAMES * 0.010
+    n = TRAIN_GRAPH_STEPS
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        for kind in ("distill", "gan"):
+            res = {}
+            for jit in (False, True):
+                res[jit] = _train_graph_run(device, kind, params, cfg, batches, n, jit=jit)
+            (h_e, s_e, p_e, _), (h_g, s_g, p_g, cap) = res[False], res[True]
+            dev = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(h_g, h_e))
+            if [s for s, _ in h_g] != list(range(n)) or not dev <= TRAIN_GRAPH_RTOL:
+                raise AssertionError(f"train_graph {kind}: compiled vs eager losses deviate by "
+                                     f"{dev}: {h_g} vs {h_e}")
+            with tempfile.TemporaryDirectory() as d:
+                _train_graph_run(device, kind, params, cfg, batches, TRAIN_GRAPH_RESUME_STEP,
+                                 ckpt_dir=d)
+                resumed = _train_graph_run(device, kind, params, cfg,
+                                           batches[TRAIN_GRAPH_RESUME_STEP:], n, ckpt_dir=d,
+                                           resume=True)[0]
+            if resumed != h_g[TRAIN_GRAPH_RESUME_STEP:]:
+                raise AssertionError(f"train_graph {kind}: the resumed compiled run {resumed} "
+                                     f"is not the straight one's {h_g}")
+            out[kind] = {"max_rel_dev_graph_vs_eager": dev, "tol": TRAIN_GRAPH_RTOL,
+                         "loss_first": h_g[0][1], "loss_last": h_g[-1][1],
+                         "eager_steps_per_s": n / s_e,
+                         "graph_steps_per_s_without_capture": n / (s_g - cap / 1e3),
+                         "graph_steps_per_s_with_capture": n / s_g,
+                         "eager_audio_seconds_per_s": n * audio_s / s_e,
+                         "graph_audio_seconds_per_s": n * audio_s / (s_g - cap / 1e3),
+                         "capture_ms": cap, "eager_peak_mib": p_e, "graph_peak_mib": p_g,
+                         "resume_bitwise": True}
+        want = golden.load(TRAIN_GOLDEN)
+        batch = {k: want[f"batch/{k}"] for k in ("audio16", "target24", "f0_bin")}
+        got = golden.run_train(cfg, params, bank, device, batch, jit=True)
+        worst = 0.0
+        for key, value in got.items():
+            ok, dev, bound = golden.train_gate(key, value, float(want[key]))
+            if not ok:
+                raise AssertionError(f"train_graph golden: {key} {value} vs {float(want[key])}: "
+                                     f"{dev} > {bound}")
+            if "grad/" not in key:
+                worst = max(worst, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = no_upsampler_launches("train_graph")
+    log("train_graph", t0, model="klatt8", batch=TRAIN_BATCH, frames=TRAIN_FRAMES, steps=n,
+        resume_step=TRAIN_GRAPH_RESUME_STEP, teacher_max_abs_diff_graph_vs_eager=teacher_diff,
+        runs=out, golden_worst_loss_rel_dev=worst, golden_loss_rtol=golden.TRAIN_LOSS_RTOL,
+        kernel_launches=counts, nvidia_smi=card)
+
+
+def feature_distill_graph_phase(device, card):
+    """module_step for each module on klatt8 (the teacher) and a student
+    from chain.init, batch 8 x 32 frames, compiled (one CUDA graph a
+    module) against eager, FEATURE_GRAPH_STEPS steps each, deterministic
+    algorithms on: every loss within TRAIN_GRAPH_RTOL; step ms of each;
+    then end_to_end_error and end_to_end_error_soft compiled against
+    eager (every number within TRAIN_GRAPH_RTOL relative)."""
+    import torch
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.models import chain
+    from beatrice_vst_tpu_torch.models.io import params_from_numpy
+    from beatrice_vst_tpu_torch.runtime import graphs
+    from beatrice_vst_tpu_torch.training import distill
+    from beatrice_vst_tpu_torch.training import feature_distill as FD
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    teacher = params_from_numpy(params, device)
+    batch = golden.train_inputs(cfg, bank, device, golden.train_batch(batch=TRAIN_BATCH,
+                                                                      frames=TRAIN_FRAMES))
+    student0 = chain.init(torch.Generator().manual_seed(2), cfg, "cpu")
+    reset_launch_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    modules = {}
+    try:
+        for module in ("phone", "pitch", "wg"):
+            losses, step_ms = {}, {}
+            for jit in (False, True):
+                graphs.CACHE.clear()
+                student = distill.trainable(student0, device)
+                opt = distill.Optimizer(student[module], 1e-3, betas=(0.9, 0.999),
+                                        weight_decay=0.0)
+                losses[jit], times = [], []
+                for _ in range(FEATURE_GRAPH_STEPS):
+                    _, t, _, _ = timed_call(lambda: losses[jit].append(float(FD.module_step(
+                        student, opt, teacher, batch, cfg=cfg, module=module,
+                        jit=jit)[-1]["loss"])))
+                    times.append(t * 1e3)
+                step_ms[jit] = times
+            dev = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+            if not dev <= TRAIN_GRAPH_RTOL:
+                raise AssertionError(f"feature_distill_graph {module}: compiled vs eager "
+                                     f"losses {losses}")
+            modules[module] = {"max_rel_dev_graph_vs_eager": dev, "losses": losses[True],
+                               "eager_step_ms": float(np.median(step_ms[False][1:])),
+                               "graph_step_ms": float(np.median(step_ms[True][1:])),
+                               "graph_first_step_ms": step_ms[True][0]}
+        student = params_from_numpy(student0, device)
+        diags = {}
+        for fn in (FD.end_to_end_error, FD.end_to_end_error_soft):
+            got, want = (fn(student, teacher, batch, cfg=cfg, jit=jit) for jit in (True, False))
+            dev = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-12)
+                      for k in want)
+            if not dev <= TRAIN_GRAPH_RTOL:
+                raise AssertionError(f"{fn.__name__}: compiled {got} vs eager {want}")
+            diags[fn.__name__] = dev
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = no_upsampler_launches("feature_distill_graph")
+    log("feature_distill_graph", t0, model="klatt8 teacher, chain.init student",
+        batch=TRAIN_BATCH, frames=TRAIN_FRAMES, steps=FEATURE_GRAPH_STEPS, tol=TRAIN_GRAPH_RTOL,
+        modules=modules, diagnostics_max_rel_dev=diags, kernel_launches=counts,
+        nvidia_smi=card)
 
 
 MESH_RANKS = 2
@@ -2264,6 +2694,11 @@ def main() -> int:
     train_phase(device, card)
     train_data_phase(device, card)
     seqpar_phase(device, card)
+    offline_graph_phase(device, card)
+    seqpar_graph_phase(device, card)
+    by_path["float32"]["parity_graph"] = parity_graph_phase(device, card)
+    train_graph_phase(device, card)
+    feature_distill_graph_phase(device, card)
     mesh_phases(device, card, by_path)
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())

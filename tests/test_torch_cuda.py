@@ -428,11 +428,14 @@ def test_offline_on_the_card_matches_the_golden_file(cuda_device):
 def test_chunk_tick_matches_streaming_on_the_card(cuda_device, version):
     """run_parity on the card: one tick of 25 frames (the stage loop, no
     kernel launch) against 25 ticks of one frame (the f32 kernel, one
-    launch each), at the JAX harness's 1e-3.  2.0.0-rc.0 on klatt8,
-    2.0.0-alpha.2 on random parameters from a seed."""
+    launch each, replays of the compiled streaming tick, whose capture's
+    warm-up ticks launch it GRAPH_WARMUP_CALLS times), at the JAX
+    harness's 1e-3.  2.0.0-rc.0 on klatt8, 2.0.0-alpha.2 on random
+    parameters from a seed."""
     from beatrice_vst_tpu_torch.constants import VERSIONS
     from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
     from beatrice_vst_tpu_torch.parity import run_parity
+    from beatrice_vst_tpu_torch.runtime.graphs import GRAPH_WARMUP_CALLS
 
     spec = VERSIONS[version]
     params = bank = None
@@ -455,7 +458,7 @@ def test_chunk_tick_matches_streaming_on_the_card(cuda_device, version):
                         controls={"vq_num_neighbors": 2, "pitch_shift": 3.0},
                         device=cuda_device, timer=timer)
     assert report.passed, str(report)
-    assert counts == {"chunk": 0, "stream": 25}
+    assert counts == {"chunk": 0, "capture": GRAPH_WARMUP_CALLS, "stream": 25}
 
 
 # ---- the compiled tick: a CUDA graph over the donated tick ----
@@ -797,6 +800,195 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, config):
         assert got["launches"] == {"float32": 0, "bfloat16": 0, form: MESH_TICKS}
         np.testing.assert_allclose(got["out"], plain["out"], rtol=0,
                                    atol=BF16_TOL if form == "bfloat16" else TOL)
+
+
+# ---- the compiled offline, seqpar, parity and training steps ----
+
+TRAIN_RTOL = 1e-4  # golden.TRAIN_LOSS_RTOL: compiled and eager run the same kernels
+
+
+def _klatt8_cfg():
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+
+    return VoiceConverterConfig.for_version(V20RC0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_frames,dtype", [(64, None), (64, torch.bfloat16), (0, None)],
+                         ids=["chunk_f32", "chunk_bf16", "whole_f32"])
+def test_offline_compiled_equals_eager_on_the_card(cuda_device, chunk_frames, dtype):
+    """convert_utterance's compiled steps (CUDA graphs: the chunk step, the
+    whole-utterance step, the resamplers) equal the eager conversion
+    bitwise, on two utterances of one length (the second replays)."""
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+
+    params, bank = _klatt8(cuda_device)
+    settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
+    for seed in (0, 1):
+        sig = golden.offline_signal(seed=seed)
+        got, want = (convert_utterance(params, _klatt8_cfg(), bank, sig, golden.OFFLINE_RATE,
+                                       settings, compute_dtype=dtype, chunk_frames=chunk_frames,
+                                       device=cuda_device, jit=jit) for jit in (True, False))
+        np.testing.assert_array_equal(got, want)
+        assert np.abs(got).max() > 0.01
+
+
+@pytest.mark.cuda
+def test_offline_steps_of_two_models_of_one_shape(cuda_device):
+    """klatt8 and klatt8_r6 (the same shapes): each model's compiled
+    conversion equals its own eager one, bitwise (a graph reads the
+    parameters it captured, keyed by their identity)."""
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+    from beatrice_vst_tpu_torch.runtime.offline import convert_utterance
+
+    sig = golden.offline_signal()
+    outs = []
+    for name in ("klatt8", "klatt8_r6", "klatt8"):
+        _, cfg, params, bank = load_model_dir(os.path.join(MODEL_DIR, "..", name))
+        params = _to(params, cuda_device)
+        got, want = (convert_utterance(params, cfg, bank, sig, golden.OFFLINE_RATE,
+                                       chunk_frames=64, device=cuda_device, jit=jit)
+                     for jit in (True, False))
+        np.testing.assert_array_equal(got, want)
+        outs.append(got)
+    assert np.abs(outs[0] - outs[1]).max() > 1e-3
+    np.testing.assert_array_equal(outs[0], outs[2])
+
+
+def _to(params, device):
+    from beatrice_vst_tpu_torch.models.io import params_from_numpy
+
+    return params_from_numpy(params, device)
+
+
+@pytest.mark.cuda
+def test_seqpar_compiled_equals_eager_on_the_card(cuda_device):
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings
+    from beatrice_vst_tpu_torch.runtime.seqpar import convert_utterance_sp
+
+    params, bank = _klatt8(cuda_device)
+    sig = golden.offline_signal(seconds=4.0)
+    got, want = (convert_utterance_sp(params, _klatt8_cfg(), bank, sig, golden.OFFLINE_RATE,
+                                      ConversionSettings(**golden.OFFLINE_SETTINGS),
+                                      n_segments=4, device=cuda_device, jit=jit)
+                 for jit in (True, False))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_parity_compiled_replays_count_one_launch_a_frame(cuda_device):
+    """run_parity's compiled streaming half on klatt8: its capture's
+    warm-up ticks launch the f32 form once each, each of the T replays
+    counts one launch, the chunk tick none; the report equals the eager
+    streaming half's."""
+    import contextlib
+
+    from beatrice_vst_tpu_torch.parity import run_parity
+    from beatrice_vst_tpu_torch.runtime import graphs
+
+    params, bank = _klatt8(cuda_device)
+    launches = {}
+
+    @contextlib.contextmanager
+    def timer(name):
+        torch.cuda.synchronize()
+        before = (FU.launches, FU.launches_bf16)
+        yield
+        torch.cuda.synchronize()
+        launches[name] = (FU.launches - before[0], FU.launches_bf16 - before[1])
+
+    kw = dict(n_frames=20, batch=4, controls={"pitch_shift": 2.0}, device=cuda_device)
+    got = run_parity(params, _klatt8_cfg(), bank, timer=timer, jit=True, **kw)
+    assert launches == {"chunk": (0, 0), "capture": (graphs.GRAPH_WARMUP_CALLS, 0),
+                        "stream": (20, 0)}
+    want = run_parity(params, _klatt8_cfg(), bank, jit=False, **kw)
+    assert got.passed and (got.max_abs_diff, got.rms_diff) == (want.max_abs_diff,
+                                                               want.rms_diff)
+
+
+def _train_setup(device):
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    return cfg, params, golden.train_inputs(cfg, bank, device)
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+@pytest.mark.cuda
+def test_train_step_compiled_matches_eager_on_the_card(cuda_device):
+    from beatrice_vst_tpu_torch.training import distill
+
+    cfg, params, batch = _train_setup(cuda_device)
+    runs = []
+    for jit in (True, False):
+        p = distill.trainable(params, cuda_device)
+        opt = distill.make_optimizer(p, golden.TRAIN_LR, total_steps=10)
+        runs.append([distill.train_step(p, opt, batch, cfg=cfg, jit=jit,
+                                        periodicity_weight=golden.TRAIN_PERIO)[-1]
+                     for _ in range(3)])
+    for mc, me in zip(*runs):
+        for k in me:
+            assert _rel(mc[k], me[k]) <= TRAIN_RTOL, (k, float(mc[k]), float(me[k]))
+
+
+@pytest.mark.cuda
+def test_gan_train_step_compiled_matches_eager_on_the_card(cuda_device):
+    from beatrice_vst_tpu_torch.training import distill, gan
+
+    cfg, params, batch = _train_setup(cuda_device)
+    runs = []
+    for jit in (True, False):
+        g = distill.trainable(params, cuda_device)
+        d = distill.trainable(golden.disc_params(), cuda_device)
+        opts = gan.make_gan_optimizers(g, d, golden.TRAIN_LR)
+        runs.append([gan.gan_train_step(g, d, *opts, batch, cfg=cfg, jit=jit)[-1]
+                     for _ in range(2)])
+    for mc, me in zip(*runs):
+        for k in ("g_loss", "d_loss", "rec", "fm", "adv"):
+            assert _rel(mc[k], me[k]) <= TRAIN_RTOL, (k, float(mc[k]), float(me[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["phone", "pitch", "wg"])
+def test_module_step_compiled_matches_eager_on_the_card(cuda_device, module):
+    from beatrice_vst_tpu_torch.models import chain
+    from beatrice_vst_tpu_torch.training import distill
+    from beatrice_vst_tpu_torch.training import feature_distill as FD
+
+    cfg, params, batch = _train_setup(cuda_device)
+    teacher = _to(params, cuda_device)
+    losses = []
+    for jit in (True, False):
+        student = distill.trainable(chain.init(torch.Generator().manual_seed(2), cfg, "cpu"),
+                                    cuda_device)
+        opt = distill.Optimizer(student[module], 1e-3, betas=(0.9, 0.999), weight_decay=0.0)
+        losses.append([float(FD.module_step(student, opt, teacher, batch, cfg=cfg,
+                                            module=module, jit=jit)[-1]["loss"])
+                       for _ in range(3)])
+    for a, b in zip(*losses):
+        assert abs(a - b) <= TRAIN_RTOL * abs(b), losses
+
+
+@pytest.mark.cuda
+def test_compiled_training_on_the_card_matches_the_golden_file(cuda_device):
+    """golden.run_train through the compiled steps: the JAX package's
+    losses at 1e-4 (golden.train_gate) and no launch of the kernel."""
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    want = golden.load(os.path.join(os.path.dirname(__file__), "data",
+                                    "torch_train_golden.npz"))
+    batch = {k: want[f"batch/{k}"] for k in ("audio16", "target24", "f0_bin")}
+    before = FU.launches
+    got = golden.run_train(cfg, params, bank, cuda_device, batch, jit=True)
+    assert FU.launches == before
+    for k, v in got.items():
+        ok, dev, bound = golden.train_gate(k, v, float(want[k]))
+        assert ok, (k, v, float(want[k]), dev, bound)
 
 
 @pytest.mark.cuda
