@@ -475,7 +475,7 @@ def train_inputs(cfg, bank, device, batch_np=None) -> dict:
 
 
 def run_train(cfg, params, bank, device, batch_np=None, mesh=None,
-              model_parallel: bool = False, jit: bool = False) -> dict:
+              model_parallel: bool = False, jit: bool | None = False) -> dict:
     """The port's numbers of the train golden file (the keys above but
     "batch/*"): one distillation step and one GAN step from `params` on
     the golden batch, and each one's second step, as Python floats.  With
@@ -483,10 +483,12 @@ def run_train(cfg, params, bank, device, batch_np=None, mesh=None,
     arguments), data-parallel over its 'streams' axis (this rank's rows,
     the whole batch's losses, the gradients summed over 'streams') and
     with model_parallel the generator's weights split over 'model'; the
-    gradient norms are those of the whole gradients.  With jit (no mesh)
-    the losses come from the compiled steps (`distill.train_step` and
-    `gan.gan_train_step`, jit=True), each step of them from the same
-    parameters, and the gradient norms from the eager backward passes."""
+    gradient norms are those of the whole gradients.  Compiled (`jit`
+    True, or None where `distill.resolve_step_jit` compiles the steps on
+    this mesh) the losses come from the compiled steps
+    (`distill.train_step` and `gan.gan_train_step` on the mesh), each step
+    of them from the same parameters, and the gradient norms from the
+    eager backward passes."""
     import torch
 
     from .models.io import flatten_params, params_from_numpy
@@ -495,6 +497,7 @@ def run_train(cfg, params, bank, device, batch_np=None, mesh=None,
     from .training import distill, gan
 
     group = collectives.dp_group(mesh)
+    compiled = distill.resolve_step_jit(jit, mesh, split=model_parallel)
     batch = train_inputs(cfg, bank, device, batch_np)
     generator = params
     if mesh is not None:
@@ -520,14 +523,14 @@ def run_train(cfg, params, bank, device, batch_np=None, mesh=None,
     if group is not None:
         collectives.all_reduce_grads_(opt.leaves, group)
     norms("distill/grad", p)
-    if jit:
+    if compiled:
         # the eager autograd graph (held by loss and aux) goes before the
         # capture: its AccumulateGrad nodes would tie the captured backward
         # pass to the default stream
         del loss, aux
         opt.zero_grad()
         aux = distill.train_step(p, opt, batch, cfg=cfg, periodicity_weight=TRAIN_PERIO,
-                                 jit=True)[-1]
+                                 mesh=mesh, jit=True)[-1]
         loss = aux.pop("loss")
     else:
         opt.step()
@@ -553,14 +556,15 @@ def run_train(cfg, params, bank, device, batch_np=None, mesh=None,
     gan.set_grads(g_loss, gen_opt, group)
     norms("gan/g_grad", g)
     gen_opt.step()
-    if jit:
+    if compiled:
         g, d, gen_opt, disc_opt = gan_players()
-        aux = gan.gan_train_step(g, d, gen_opt, disc_opt, batch, cfg=cfg, jit=True)[-1]
+        aux = gan.gan_train_step(g, d, gen_opt, disc_opt, batch, cfg=cfg, mesh=mesh,
+                                 jit=True)[-1]
         d_loss, g_loss = aux.pop("d_loss"), aux.pop("g_loss")
     out.update({"gan/d_loss": float(d_loss), "gan/g_loss": float(g_loss)})
     out.update({f"gan/{k}": float(v) for k, v in aux.items()})
     metrics = gan.gan_train_step(g, d, gen_opt, disc_opt, batch, cfg=cfg, mesh=mesh,
-                                 jit=jit)[-1]
+                                 jit=compiled)[-1]
     out["gan/d_loss2"] = float(metrics["d_loss"])
     out["gan/g_loss2"] = float(metrics["g_loss"])
     return out

@@ -10,6 +10,7 @@ from .collectives import (  # noqa: F401
 from .mesh import (  # noqa: F401
     MODEL_PARALLEL_RULES,
     P,
+    captures_collectives,
     distributed_init,
     gather_tree,
     make_mesh,
@@ -17,5 +18,6 @@ from .mesh import (  # noqa: F401
     replicated,
     shard_tree,
     spawn_cpu_ranks,
+    spawn_nccl_ranks,
     state_sharding,
 )

@@ -5,11 +5,15 @@ under tensor parallelism, the data- and tensor-parallel training steps,
 mesh-sharded seqpar and the bring-up itself.
 
 Each `*_case` function runs on one rank of a group that `spawn_cpu_ranks`
-made (or, with mesh_shape None, unsharded in the caller's process: the
-reference) and returns numpy arrays and Python numbers.  `run_cases` runs
-a list of them on one rank, so that one spawn serves them all.  They live
-in the package, not in a test module, because a spawned rank imports the
-module of the function it runs.
+(or `spawn_nccl_ranks`) made (or, with mesh_shape None, unsharded in the
+caller's process: the reference) and returns numpy arrays and Python
+numbers.  `run_cases` runs a list of them on one rank, so that one spawn
+serves them all.  They live in the package, not in a test module, because
+a spawned rank imports the module of the function it runs.
+
+The cases that run a compiled path take `jit` as its entry point does
+(None: compiled wherever `graphs.resolve_jit` compiles it on this mesh;
+False: the eager twin) and report the mode they ran (`compiled`).
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from ..models import chain
 from ..models import fused_upsampler as FU
 from ..models import phone_extractor, pitch_estimator, waveform_generator
 from ..models.io import flatten_params, params_from_numpy
-from ..runtime.engine import (EngineConfig, StreamEngine, cast_params, engine_tick,
+from ..runtime import graphs
+from ..runtime.engine import (EngineConfig, StreamEngine, TickStep, cast_params,
                               init_engine_state, prepare_bank)
 from . import collectives
+from . import mesh as mesh_mod
 from .mesh import (P, all_gather_cat, gather_tree, make_mesh, params_sharding, shard_leaf,
                    shard_tree, state_sharding)
 
@@ -82,22 +88,54 @@ def reset_launch_counts() -> None:
     FU.launches = FU.launches_bf16 = 0
 
 
+HOST_LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
+
+
+def host_launch_calls(prof) -> int:
+    """The host's calls that put work on a stream (kernel and graph
+    launches, copies, fills) in a torch.profiler run."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cu") and any(w in e.key for w in HOST_LAUNCH_WORDS))
+
+
+class _NewSteps:
+    """The compiled steps the step cache built within a `with` block (their
+    capture ms) and the collectives captured meanwhile."""
+
+    def __enter__(self):
+        self._old = {id(s) for s in graphs.CACHE.steps()}
+        self._collectives = mesh_mod.captured_collectives
+        return self
+
+    def __exit__(self, *exc):
+        new = [s for s in graphs.CACHE.steps() if id(s) not in self._old]
+        self.capture_ms = [s.capture_ms for s in new]
+        self.captured_collectives = mesh_mod.captured_collectives - self._collectives
+
+
 # ---- the engine tick ----
 
 def tick_case(params, bank, audio, version: str, capacity: int, mesh_shape=None,
               model_parallel: bool = False, admit=None, engine_kw=None,
-              keep_state: bool = True, device="cuda"):
+              keep_state: bool = True, jit: bool | None = None, profile: bool = False,
+              device="cuda"):
     """The engine on `audio` [ticks, capacity, 480]: the state and the
     weights as `StreamEngine` makes them (`admit`: None sets every stream
     active in a fresh state, as tests/test_sharding.py does; "all" admits
     every stream; "golden" runs `golden.admit_all`; a list admits one
     stream per {control: value} dict and sets its controls), then, on a mesh, the
     state split over 'streams' (`state_sharding(..., capacity)`) and with
-    model_parallel the weights over 'model', and `engine_tick` on this
-    rank's rows, the output gathered after each tick.  Returns the
-    outputs [ticks, capacity, 480], each kernel form's launches in the
-    ticks, on the card each tick's span (CUDA events) and host ms and the
-    peak MiB, and with keep_state the final state, gathered."""
+    model_parallel the weights over 'model', and a `TickStep` on this
+    rank's rows (compiled or eager by `jit`), the output gathered after
+    each tick.  Returns the outputs [ticks, capacity, 480], whether the
+    tick was compiled, each kernel form's launches (the ticks' and, on the
+    card, the capture's warm-up ticks': `warmup_ticks`), on the card each
+    tick's span (CUDA events) and host ms, the capture's host ms and the
+    collectives it took into the graph, the peak
+    MiB (the capture's included) and, with profile, the host's launch
+    calls and the card's NCCL kernels in the last tick (under
+    torch.profiler; that tick is left out of the spans); with keep_state
+    the final state, gathered."""
     dev = resolve_device(device)
     mesh = _mesh(mesh_shape, dev)
     cfg = EngineConfig.realtime(capacity, VERSIONS[version], **(engine_kw or {}))
@@ -108,7 +146,7 @@ def tick_case(params, bank, audio, version: str, capacity: int, mesh_shape=None,
         state["controls"]["active"][:] = True
     else:
         # jit=False: only the stream table and the state are borrowed; the
-        # ticks below are the functional engine_tick
+        # ticks below are the TickStep's
         eng = StreamEngine(cfg, params, bank, device=dev, jit=False)
         if admit == "golden":
             from .. import golden
@@ -137,13 +175,28 @@ def tick_case(params, bank, audio, version: str, capacity: int, mesh_shape=None,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    outs, spans, host_ms = [], [], []
+    collectives_before = mesh_mod.captured_collectives
+    tick = TickStep(p, b, state, cfg=cfg, mesh=mesh, jit=jit)
+    captured = mesh_mod.captured_collectives - collectives_before
+    outs, spans, host_ms, launch_calls, nccl_kernels = [], [], [], None, None
     for k in range(x.shape[0]):
+        if cuda and profile and k == x.shape[0] - 1:
+            from torch.profiler import ProfilerActivity, profile as profiler
+
+            torch.cuda.synchronize()
+            with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                outs.append(tick(x[k]))
+                torch.cuda.synchronize()
+            launch_calls = host_launch_calls(prof)
+            nccl_kernels = sum(e.count for e in prof.key_averages()
+                               if e.device_type == torch.autograd.DeviceType.CUDA
+                               and "nccl" in e.key.lower())
+            continue
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
         t = time.perf_counter()
-        out, state = engine_tick(p, b, state, x[k], cfg=cfg)
+        out = tick(x[k])
         host_ms.append((time.perf_counter() - t) * 1e3)
         if cuda:
             end.record()
@@ -152,11 +205,14 @@ def tick_case(params, bank, audio, version: str, capacity: int, mesh_shape=None,
     counts = launch_counts()
     if cuda:
         torch.cuda.synchronize()
-    result = {"launches": counts, "host_ms": host_ms,
+    result = {"launches": counts, "compiled": tick.compiled, "warmup_ticks": tick.warmup_ticks,
+              "capture_ms": tick.capture_ms, "captured_collectives": captured,
+              "host_ms": host_ms,
               "span_ms": [s.elapsed_time(e) for s, e in spans],
+              "host_launch_calls": launch_calls, "nccl_kernels": nccl_kernels,
               "peak_mib": torch.cuda.max_memory_allocated() / 2**20 if cuda else None,
               "rows": int(outs[0].shape[0])}
-    out = torch.stack(outs, 1)  # [rows, ticks, 480]
+    out, state = torch.stack(outs, 1), tick.state  # [rows, ticks, 480]
     if mesh is not None:
         out = all_gather_cat(out, 0, mesh.get_group("streams"))
         if keep_state:
@@ -212,23 +268,42 @@ def _train_batch(cfg, bank, batch_np, dev, mesh):
 
 def _snapshot_grads(opt, into: list) -> None:
     """Keep each step's gradients (whole, as numpy, in the leaves' order)
-    just before the optimizer applies them."""
-    step = opt.step
+    just before the optimizer's update applies them (the eager step, or
+    the compiled step on the CPU, which runs op by op)."""
+    update = opt.update
 
     def snapped():
         into.append([collectives.gathered(p.grad).cpu().numpy().copy() for p in opt.leaves])
-        step()
+        update()
 
-    opt.step = snapped
+    opt.update = snapped
+
+
+def _steps(run, steps: int, cuda: bool):
+    """`run()` `steps` times: the first call's metrics (floats) and each
+    call's seconds (to the card's end of it)."""
+    first, seconds = None, []
+    for _ in range(steps):
+        t = time.perf_counter()
+        metrics = run()
+        if cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        if first is None:
+            first = {k: float(v) for k, v in metrics.items()}
+    return first, seconds
 
 
 def distill_case(params, bank, batch, version: str, mesh_shape=None,
                  model_parallel: bool = False, periodicity_weight: float = 0.5,
-                 lr: float = 2e-4, device="cuda"):
-    """One `distill.train_step` on the batch (golden.train_batch's keys),
-    data-parallel over 'streams' on a mesh and with model_parallel the
-    weights split over 'model'.  Returns the loss and its terms, the
-    gradients and the updated parameters (whole)."""
+                 lr: float = 2e-4, jit: bool | None = None, steps: int = 1, device="cuda"):
+    """`steps` `distill.train_step`s on the batch (golden.train_batch's
+    keys), data-parallel over 'streams' on a mesh and with model_parallel
+    the weights split over 'model', compiled or eager by `jit`.  Returns
+    the first step's loss and its terms and gradients (not read from a
+    step captured on the card: None), the updated parameters (whole),
+    whether the step was compiled, each step's seconds, the capture's host
+    ms and the collectives it captured."""
     from ..training import distill
 
     dev = resolve_device(device)
@@ -239,16 +314,19 @@ def distill_case(params, bank, batch, version: str, mesh_shape=None,
         p = shard_tree(p, params_sharding(p, mesh, model_parallel=model_parallel), mesh)
     p = distill.trainable(p, dev)
     opt = distill.make_optimizer(p, lr)
+    compiled = distill.resolve_step_jit(jit, mesh, model_parallel)
     grads = []
-    _snapshot_grads(opt, grads)
-    # jit=False: the gradients are read where the optimizer takes them
-    _, _, metrics = distill.train_step(p, opt, _train_batch(cfg, bank, batch, dev, mesh),
-                                       cfg=cfg, periodicity_weight=periodicity_weight,
-                                       mesh=mesh, jit=False)
+    if not (compiled and dev.type == "cuda"):
+        _snapshot_grads(opt, grads)
+    batch = _train_batch(cfg, bank, batch, dev, mesh)
+    with _NewSteps() as new:
+        metrics, seconds = _steps(lambda: distill.train_step(
+            p, opt, batch, cfg=cfg, periodicity_weight=periodicity_weight, mesh=mesh,
+            jit=jit)[-1], steps, dev.type == "cuda")
     names = [k for k in flatten_params(_sorted_like(p))]
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": dict(zip(names, grads[0])),
-            "params": _numpy(_whole(p))}
+    return {"metrics": metrics, "grads": dict(zip(names, grads[0])) if grads else None,
+            "params": _numpy(_whole(p)), "compiled": compiled, "step_s": seconds,
+            "capture_ms": new.capture_ms, "captured_collectives": new.captured_collectives}
 
 
 def _sorted_like(tree):
@@ -262,12 +340,16 @@ def _sorted_like(tree):
 
 
 def gan_case(params, bank, batch, disc, version: str, mesh_shape=None,
-             model_parallel: bool = False, lr: float = 2e-4, device="cuda"):
-    """One `gan.gan_train_step` (a critic step, then a generator step, each
-    with the global-norm clip) on the batch, data-parallel over 'streams'
-    on a mesh and with model_parallel the generator's weights split over
-    'model'.  Returns both losses and the generator's terms, the gradients
-    of both players and the updated parameters of both (whole)."""
+             model_parallel: bool = False, lr: float = 2e-4, jit: bool | None = None,
+             steps: int = 1, device="cuda"):
+    """`steps` `gan.gan_train_step`s (a critic step, then a generator step,
+    each with the global-norm clip) on the batch, data-parallel over
+    'streams' on a mesh and with model_parallel the generator's weights
+    split over 'model', compiled or eager by `jit`.  Returns the first
+    step's losses and generator terms and the gradients of both players
+    (None where captured on the card), the updated parameters of both
+    (whole), and as `distill_case` the mode, seconds, capture ms and
+    captured collectives."""
     from ..training import distill, gan
 
     dev = resolve_device(device)
@@ -279,54 +361,81 @@ def gan_case(params, bank, batch, disc, version: str, mesh_shape=None,
     g = distill.trainable(g, dev)
     d = distill.trainable(disc, dev)
     gen_opt, disc_opt = gan.make_gan_optimizers(g, d, lr)
+    compiled = distill.resolve_step_jit(jit, mesh, model_parallel)
     g_grads, d_grads = [], []
-    _snapshot_grads(gen_opt, g_grads)
-    _snapshot_grads(disc_opt, d_grads)
-    metrics = gan.gan_train_step(g, d, gen_opt, disc_opt,
-                                 _train_batch(cfg, bank, batch, dev, mesh), cfg=cfg,
-                                 mesh=mesh, jit=False)[-1]
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "g_grads": dict(zip(flatten_params(_sorted_like(g)), g_grads[0])),
-            "d_grads": dict(zip(flatten_params(_sorted_like(d)), d_grads[0])),
-            "g": _numpy(_whole(g)), "d": _numpy(d)}
+    if not (compiled and dev.type == "cuda"):
+        _snapshot_grads(gen_opt, g_grads)
+        _snapshot_grads(disc_opt, d_grads)
+    batch = _train_batch(cfg, bank, batch, dev, mesh)
+    with _NewSteps() as new:
+        metrics, seconds = _steps(lambda: gan.gan_train_step(
+            g, d, gen_opt, disc_opt, batch, cfg=cfg, mesh=mesh, jit=jit)[-1], steps,
+            dev.type == "cuda")
+
+    def named(tree, grads):
+        return dict(zip(flatten_params(_sorted_like(tree)), grads[0])) if grads else None
+
+    return {"metrics": metrics, "g_grads": named(g, g_grads), "d_grads": named(d, d_grads),
+            "g": _numpy(_whole(g)), "d": _numpy(d), "compiled": compiled, "step_s": seconds,
+            "capture_ms": new.capture_ms, "captured_collectives": new.captured_collectives}
 
 
 def train_golden_case(params, bank, batch, mesh_shape, model_parallel: bool = False,
-                      device="cuda"):
+                      jit: bool | None = None, device="cuda"):
     """`golden.run_train` (the numbers of the train golden file, of
-    2.0.0-rc.0) on a mesh."""
+    2.0.0-rc.0) on a mesh, compiled or eager by `jit`: {"numbers",
+    "compiled"}."""
     from .. import golden
 
     dev = resolve_device(device)
+    mesh = _mesh(mesh_shape, dev)
     cfg = chain.VoiceConverterConfig.for_version(VERSIONS["2.0.0-rc.0"])
-    return golden.run_train(cfg, params, bank, dev, batch, mesh=_mesh(mesh_shape, dev),
-                            model_parallel=model_parallel)
+    from ..training import distill
+
+    numbers = golden.run_train(cfg, params, bank, dev, batch, mesh=mesh,
+                               model_parallel=model_parallel, jit=jit)
+    return {"numbers": numbers, "compiled": distill.resolve_step_jit(jit, mesh, model_parallel)}
 
 
 # ---- seqpar ----
 
 def seqpar_case(params, bank, audio, rate: float, n_segments: int, version: str = None,
-                cfg=None, settings=None, mesh_shape=None, device="cuda"):
+                cfg=None, settings=None, mesh_shape=None, jit: bool | None = None,
+                calls: int = 1, device="cuda"):
     """`convert_utterance_sp` of audio ([n] or [B, n]) at `rate`, on a mesh
-    over its 'streams' axis.  Returns the output and the segment count
-    whose work axis was split (or not)."""
+    over its 'streams' axis, compiled or eager by `jit`, `calls` times.
+    Returns the last call's output, whether the passes were compiled and
+    each call's seconds (to the host array)."""
     from ..runtime.seqpar import convert_utterance_sp
 
     dev = resolve_device(device)
     mesh = _mesh(mesh_shape, dev)
     cfg = cfg or chain.VoiceConverterConfig.for_version(VERSIONS[version])
-    return convert_utterance_sp(params, cfg, bank, audio, rate, settings,
-                                n_segments=n_segments, device=dev, mesh=mesh)
+    # on the device once: the compiled passes are keyed by the parameters'
+    # identity, so that the later calls replay them
+    params, bank = params_from_numpy(params, dev), params_from_numpy(bank, dev)
+    seconds = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        out = convert_utterance_sp(params, cfg, bank, audio, rate, settings,
+                                   n_segments=n_segments, device=dev, mesh=mesh, jit=jit)
+        seconds.append(time.perf_counter() - t)
+    return {"out": out, "compiled": graphs.resolve_jit(jit, mesh), "seconds": seconds}
 
 
 # ---- bring-up ----
 
 def bringup_case(mesh_shape, device="cuda"):
     """What the group looks like from this rank: backend, world size, rank,
-    an all-reduce of the ranks' indices, this rank's mesh coordinates, and
-    the error a mesh of the wrong size raises."""
+    an all-reduce of the ranks' indices, this rank's mesh coordinates, the
+    compiled steps' key of the mesh and of another mesh of the same ranks
+    (n x 1, or 1 x n where the mesh is n x 1; `graphs.mesh_key`), and the
+    error a mesh of the wrong size raises."""
     dev = resolve_device(device)
     mesh = make_mesh(*mesh_shape, device_type=str(dev))
+    n = dist.get_world_size()
+    other = make_mesh(*((1, n) if mesh_shape[1] == 1 else (n, 1)), device_type=str(dev))
+    keys = [graphs.mesh_key(m) for m in (mesh, other)]
     total = torch.tensor([float(dist.get_rank())], device=dev)
     dist.all_reduce(total)
     try:
@@ -337,7 +446,7 @@ def bringup_case(mesh_shape, device="cuda"):
     return {"backend": dist.get_backend(), "world": dist.get_world_size(),
             "rank": dist.get_rank(), "rank_sum": float(total),
             "coords": {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names},
-            "refused": refused}
+            "mesh_keys": keys, "refused": refused}
 
 
 

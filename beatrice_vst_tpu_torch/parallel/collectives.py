@@ -26,6 +26,13 @@ as GSPMD computes them, not a mean of each rank's ratio.
 
 Only `all_reduce`, `all_gather` and `broadcast` are used: `gloo` has no
 reduce-scatter for CUDA tensors.
+
+Each collective may run while a CUDA graph is captured (a compiled step on
+NCCL ranks, `runtime/graphs.py`): it issues the same operations on the
+capturing stream, in the same order, and its buffers (the clones, the
+flat gradient, the zero gradients it makes) come from the graph's pool.
+`mesh.check_capture` counts each one a capture takes in and raises for a
+group whose backend cannot be captured.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import functools
 import torch
 import torch.distributed as dist
 
-from .mesh import all_gather_cat, axis_sizes
+from .mesh import all_gather_cat, axis_sizes, check_capture
 
 
 @functools.cache
@@ -63,6 +70,7 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        check_capture(ctx.group)
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
@@ -71,6 +79,7 @@ class _CopyTo(torch.autograd.Function):
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        check_capture(group)
         y = x.contiguous().clone()
         dist.all_reduce(y, group=group)
         return y
@@ -157,6 +166,7 @@ def global_norm(x, group=None):
 @torch.no_grad()
 def reduce_sum(x, group):
     """x summed over the ranks of `group` (no gradient)."""
+    check_capture(group)
     x = x.clone()
     dist.all_reduce(x, group=group)
     return x
@@ -167,6 +177,7 @@ def all_reduce_grads_(leaves, group) -> None:
     """Sum the leaves' gradients over `group`, in place (a split weight's
     gradient on its block): one all-reduce of the flattened gradients.  A
     leaf without a gradient gets a zero one first."""
+    check_capture(group)
     grads = []
     for p in leaves:
         if p.grad is None:

@@ -33,7 +33,11 @@ group.
 n devices in one process, PyTorch runs n processes under a `gloo` group.
 The ranks compute on whatever device their function puts its tensors on
 (the CPU in the tests; the card in chip_smoke.py, where two ranks share
-one GPU, since NCCL refuses two ranks on one device).
+one GPU, since NCCL refuses two ranks on one device).  `spawn_nccl_ranks`
+runs n processes under an NCCL group, rank r on card r: the ranks of a
+machine with a card each, whose collectives a CUDA graph can capture
+(`captures_collectives`; a gloo collective of CUDA tensors goes through
+the host and cannot be captured).
 """
 
 from __future__ import annotations
@@ -93,6 +97,38 @@ def distributed_init(coordinator_address=None, num_processes=None, process_id=No
         address = f"tcp://{address}"
     dist.init_process_group(backend, init_method=address, world_size=num_processes,
                             rank=process_id)
+
+
+def backend(mesh) -> str:
+    """The backend of a mesh's groups ("nccl" or "gloo"): every axis's
+    group is made from the default group, with its backend."""
+    return dist.get_backend(mesh.get_group(mesh.mesh_dim_names[0]))
+
+
+def captures_collectives(mesh) -> bool:
+    """Whether a CUDA graph can capture the collectives over this mesh's
+    groups: NCCL's, which run on a CUDA stream, and no other backend's."""
+    return backend(mesh) == "nccl"
+
+
+# collectives issued on a stream that was capturing a CUDA graph, in this
+# process: the collectives that captured graphs hold
+captured_collectives = 0
+
+
+def check_capture(group) -> None:
+    """Call before each collective over `group`.  While this thread's
+    current stream captures a CUDA graph, the collective becomes part of
+    the graph: it is counted (`captured_collectives`) on an NCCL group and
+    raises on any other, whose collective cannot be captured."""
+    global captured_collectives
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        return
+    name = dist.get_backend(group)
+    if name != "nccl":
+        raise RuntimeError(f"a {name!r} collective while a CUDA graph is captured: only NCCL "
+                           "collectives can be captured")
+    captured_collectives += 1
 
 
 def make_mesh(streams: int | None = None, model: int = 1, device_type: str = "cuda"):
@@ -262,6 +298,7 @@ def all_gather_cat(x, dim: int, group):
     n = dist.get_world_size(group)
     if n == 1:
         return x
+    check_capture(group)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
@@ -292,11 +329,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, n, port, fn, args, results):
-    """One spawned rank: join the gloo group, run fn, report."""
+def _rank_main(rank, n, port, backend_name, fn, args, results):
+    """One spawned rank: join the group, run fn, report."""
     torch.set_num_threads(1)  # n ranks share the host's cores
     try:
-        distributed_init(f"tcp://127.0.0.1:{port}", n, rank, backend="gloo")
+        distributed_init(f"tcp://127.0.0.1:{port}", n, rank, backend=backend_name)
         value = fn(rank, *args)
         dist.barrier()  # no rank leaves while another may still read from it
         results.put((rank, True, value))
@@ -316,12 +353,30 @@ def spawn_cpu_ranks(n: int, fn, *args, limit_s: float = RANK_LIMIT_S):
     picklable.  Raises, with the rank's traceback, when a rank fails, and
     when the ranks have not all finished within limit_s seconds; every
     rank still running is then stopped."""
+    return _spawn(n, "gloo", fn, args, limit_s)
+
+
+def spawn_nccl_ranks(n: int, fn, *args, limit_s: float = RANK_LIMIT_S):
+    """`spawn_cpu_ranks` under one n-rank NCCL group, rank r on card r
+    (`distributed_init` sets its device).  Raises where this machine has
+    fewer cards than ranks: NCCL refuses two ranks on one card, and there
+    is no fallback to gloo (`spawn_cpu_ranks` runs ranks that share a
+    card)."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < n:
+        raise RuntimeError(f"{n} NCCL ranks need {n} cards, one a rank; this machine has "
+                           f"{cards} (spawn_cpu_ranks runs gloo ranks that share a card)")
+    return _spawn(n, "nccl", fn, args, limit_s)
+
+
+def _spawn(n: int, backend_name: str, fn, args, limit_s: float):
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, n, port, fn, args, results), daemon=True)
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, n, port, backend_name, fn, args, results), daemon=True)
              for r in range(n)]
     for p in procs:
         p.start()

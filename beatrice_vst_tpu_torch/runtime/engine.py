@@ -54,7 +54,9 @@ output), and each tick replays it:
 three host launches (copy in, replay, copy out) in place of about a
 thousand.  On the CPU, where CUDA graphs do not exist, it runs the
 donated tick op by op.  `jit=False` ticks `engine_tick` op by op and
-rebinds the state, the yardstick of both.
+rebinds the state, the yardstick of both.  `TickStep` is the same
+compiled tick over a state the caller holds: on a mesh (`parallel/`) a
+rank's rows, with the weights replicated or split over 'model'.
 """
 
 from __future__ import annotations
@@ -334,6 +336,50 @@ def donated_tick(params, bank, state, audio48, *, cfg: EngineConfig) -> torch.Te
     return out
 
 
+class TickStep:
+    """The tick of a state the caller holds: `tick(audio48)` -> the output,
+    the state advanced (`self.state`).  Compiled, it is the counterpart of
+    the JAX package's `jax.jit(engine_tick, donate_argnums=(2,))` over a
+    sharded state (`__graft_entry__.py:138`): `donated_tick` through
+    `graphs.CompiledStep` over the state and a static input, on CUDA one
+    CUDA graph captured here after GRAPH_WARMUP_TICKS warm-up ticks on a
+    scratch copy of the state (they launch the kernel, and the launches
+    count: `warmup_ticks`), each tick a copy in, a replay and a copy out.
+    On a mesh the state is a rank's rows (`state_sharding`) and the
+    weights are replicated or split over 'model' (`DTensor`s, whose
+    collectives then run inside the graph, on NCCL ranks).  Eager
+    (`compiled` False), each tick runs `engine_tick` op by op and rebinds
+    `self.state`.  `graphs.resolve_jit` decides: the tick with split
+    weights issues collectives, the tick with replicated ones none."""
+
+    def __init__(self, params, bank, state, *, cfg: EngineConfig, mesh=None,
+                 jit: bool | None = None):
+        from ..parallel.collectives import is_sharded
+
+        self.params, self.bank, self.state, self.cfg = params, bank, state, cfg
+        split = any(is_sharded(x) for x in graphs.leaves(params))
+        self.compiled = graphs.resolve_jit(jit, mesh, collectives=split)
+        self.step, self.warmup_ticks, self.capture_ms = None, 0, 0.0
+        if not self.compiled:
+            return
+        counter = state["frame_counter"]
+        static_in = torch.zeros((counter.shape[0], cfg.samples_per_tick), device=counter.device)
+        self.step = graphs.CompiledStep(
+            lambda st, x: donated_tick(params, bank, st, x, cfg=cfg), (state, static_in),
+            warmup_args=(graphs.clone_tree(state), static_in))
+        if self.step.graph is not None:
+            self.warmup_ticks, self.capture_ms = GRAPH_WARMUP_TICKS, self.step.capture_ms
+
+    def __call__(self, audio48) -> torch.Tensor:
+        if self.step is None:
+            out, self.state = engine_tick(self.params, self.bank, self.state, audio48,
+                                          cfg=self.cfg)
+            return out
+        self.step.args[1].copy_(audio48)
+        # the graph's output is overwritten by the next replay
+        return self.step().clone()
+
+
 def apply_control_updates(state, updates) -> None:
     """Write staged control edits {field: (idx [K], values [K])} into the
     control tensors, in place."""
@@ -520,21 +566,15 @@ class StreamEngine:
 
     def _capture(self) -> None:
         """Capture one donated tick in a CUDA graph over `self.state` and a
-        static input (`graphs.CompiledStep`).  Its GRAPH_WARMUP_TICKS
-        warm-up ticks run on a scratch copy of the state (ticking the live
-        state would advance every stream), counted in
-        `counters["graph_warmup_ticks"]`; they launch the kernel, and the
-        launches count.  A failed warm-up or capture raises."""
-        cfg, params, bank = self.cfg, self.params, self.bank
+        static input (`TickStep`).  Its GRAPH_WARMUP_TICKS warm-up ticks
+        run on a scratch copy of the state (ticking the live state would
+        advance every stream), counted in `counters["graph_warmup_ticks"]`;
+        they launch the kernel, and the launches count.  A failed warm-up
+        or capture raises."""
         with torch.cuda.device(self.device):
-            self._static_in = torch.zeros((cfg.capacity, cfg.samples_per_tick),
-                                          device=self.device)
-        self._graph = graphs.CompiledStep(
-            lambda state, x: donated_tick(params, bank, state, x, cfg=cfg),
-            (self.state, self._static_in),
-            warmup_args=(graphs.clone_tree(self.state), self._static_in))
-        self.counters["graph_warmup_ticks"] = GRAPH_WARMUP_TICKS
-        self._recorded, self.capture_ms = self._graph.recorded, self._graph.capture_ms
+            self._graph = TickStep(self.params, self.bank, self.state, cfg=self.cfg, jit=True)
+        self.counters["graph_warmup_ticks"] = self._graph.warmup_ticks
+        self._recorded, self.capture_ms = self._graph.step.recorded, self._graph.capture_ms
 
     # ---- stream table ----
 
@@ -720,9 +760,7 @@ class StreamEngine:
         self.flush_controls()
         t0 = time.perf_counter()
         if self._graph is not None:
-            self._static_in.copy_(x)
-            # the graph's output is overwritten by the next replay
-            out = self._graph().clone()
+            out = self._graph(x)
         elif self.jit:
             out = donated_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
         else:

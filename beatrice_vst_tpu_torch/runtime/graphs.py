@@ -22,7 +22,11 @@ entry holds those tensors, so an identity in a live key is never reused.
 The cache is bounded (least recently used out first), so that one-off
 shapes do not pin their graphs' memory for ever.
 
-`resolve_jit` gives the entry points' `jit` flag its meaning.
+`resolve_jit` gives the entry points' `jit` flag its meaning, on a mesh
+as well as without one; `mesh_key` puts a step's mesh into its key.  A
+tree's `DTensor` leaves (weights split over 'model') are walked by their
+local blocks (`block`): a step reads and writes the block, and is keyed by
+it.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from ..device import pinning
 from ..models import fused_upsampler
+from ..parallel.collectives import is_sharded
 
 # calls of a step on scratch tensors before its CUDA graph is captured:
 # they build every constant the step makes at its first call (resampler
@@ -46,18 +51,51 @@ GRAPH_WARMUP_CALLS = 2
 CACHE_SIZE = 8
 
 
-def resolve_jit(jit: bool | None, mesh=None) -> bool:
-    """Whether an entry point runs its compiled step: `jit` None is
-    compiled without a mesh and eager with one; True with a mesh raises,
-    since the mesh paths' compiled steps are not ported yet (ROADMAP C9)."""
-    if mesh is not None:
-        if jit:
-            raise NotImplementedError(
-                "jit=True with a mesh: the compiled mesh steps (the rank tick, and the "
-                "trainers' and seqpar's mesh= steps) are ROADMAP C9, not ported yet; "
-                "pass jit=None or jit=False")
+def resolve_jit(jit: bool | None, mesh=None, *, collectives: bool = False) -> bool:
+    """Whether an entry point runs its compiled step.
+
+    `jit=False` is the eager twin.  `jit=None` is compiled wherever a CUDA
+    graph can hold the step: without a mesh; on a mesh on the CPU (a
+    compiled step runs op by op over its static tensors there); on a mesh
+    on CUDA where the step's body issues no collective (`collectives`
+    False: the stream-sharded tick with replicated weights, seqpar's
+    passes, whose gathers stay outside the graph); on a mesh on CUDA whose
+    groups are NCCL groups, whose collectives a graph captures
+    (`parallel/mesh.py:captures_collectives`).  It is eager in one case
+    only: a step whose body issues a collective (the tensor-parallel
+    tick, a training step with a 'streams' group or split weights), on a
+    gloo group, on CUDA -- gloo runs a collective of CUDA tensors through
+    the host, which no graph can hold.  `jit=True` in that case raises; it
+    never runs eagerly."""
+    if jit is False:
         return False
-    return True if jit is None else bool(jit)
+    if mesh is None or not collectives or mesh.device_type != "cuda":
+        return True
+    from ..parallel.mesh import backend, captures_collectives
+
+    if captures_collectives(mesh):
+        return True
+    if jit:
+        raise RuntimeError(
+            f"jit=True: this step issues collectives over the mesh's {backend(mesh)!r} "
+            "group on CUDA, and a CUDA graph cannot capture a gloo collective (gloo "
+            "copies CUDA tensors through the host); run NCCL ranks, one per card "
+            "(parallel/mesh.py:spawn_nccl_ranks), or pass jit=None or jit=False for the "
+            "eager step")
+    return False
+
+
+def mesh_key(mesh) -> tuple | None:
+    """The part of a compiled step's key that names its mesh: the groups'
+    backend, the ranks of the mesh in its layout and this rank's
+    coordinates, so that a step captured on one mesh is never replayed on
+    another (None without a mesh)."""
+    if mesh is None:
+        return None
+    from ..parallel.mesh import backend
+
+    return (backend(mesh), tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()), tuple(mesh.get_coordinate()))
 
 
 # ---- trees of tensors: dicts, lists and tuples, walked in their order ----
@@ -71,8 +109,19 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def block(x):
+    """A tensor leaf as a step reads and writes it: a `DTensor` (a weight
+    split over 'model') by its local block, the tensor that holds this
+    rank's values (the same object on every call); any other as it is."""
+    if is_sharded(x):
+        with torch.no_grad():
+            return x.to_local()
+    return x
+
+
 def tensors(tree) -> list:
-    return [x for x in leaves(tree) if isinstance(x, torch.Tensor)]
+    """The tensor leaves of a tree, in its order, each by its `block`."""
+    return [block(x) for x in leaves(tree) if isinstance(x, torch.Tensor)]
 
 
 def signature(tree):
@@ -82,6 +131,9 @@ def signature(tree):
         return ("dict",) + tuple((k, signature(v)) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
         return (type(tree).__name__,) + tuple(signature(v) for v in tree)
+    if is_sharded(tree):
+        return ("dtensor", tuple(tree.shape), tuple(tree.placements),
+                signature(block(tree)))
     if isinstance(tree, torch.Tensor):
         return ("tensor", tuple(tree.shape), tree.dtype, str(tree.device))
     return tree
@@ -94,11 +146,17 @@ def identity(*trees) -> tuple:
 
 
 def clone_tree(tree):
-    """The tree with every tensor cloned (other leaves shared)."""
+    """The tree with every tensor cloned (other leaves shared); a
+    `DTensor` by its block, on the same mesh and placements."""
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(clone_tree(v) for v in tree)
+    if is_sharded(tree):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(block(tree).clone(), tree.device_mesh, tree.placements,
+                                  run_check=False, shape=tree.shape, stride=tree.stride())
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
@@ -134,8 +192,8 @@ def changed_leaves(old, new, dst, src) -> None:
         if new.shape != old.shape or new.dtype != old.dtype:
             raise ValueError(f"the step changed a state leaf: {tuple(old.shape)} {old.dtype} -> "
                              f"{tuple(new.shape)} {new.dtype}")
-        dst.append(old)
-        src.append(new)
+        dst.append(block(old))
+        src.append(block(new))
 
 
 def write_back_(state, new) -> None:

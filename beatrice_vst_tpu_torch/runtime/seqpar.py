@@ -128,12 +128,13 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
     the ranks of `axis` where (s-1)*B divides by its size, else every rank
     converts them all (the JAX package's rule).
 
-    Compiled (`jit` None or True without a mesh; `graphs.resolve_jit`),
-    the pitch pass and the chain pass of each batch of segments and the
-    resamplers are steps of the step cache, as in
-    `offline.convert_utterance`; the phase prefix between the passes stays
-    on the host, as in the JAX package.  With a mesh they run op by op
-    (their compiled form is ROADMAP C9)."""
+    Compiled (`jit` None or True; `graphs.resolve_jit`), the pitch pass
+    and the chain pass of each batch of segments and the resamplers are
+    steps of the step cache, as in `offline.convert_utterance`; the phase
+    prefix between the passes stays on the host, as in the JAX package.
+    On a mesh the passes run compiled on this rank's rows and are keyed by
+    the mesh; their bodies issue no collective (the gathers of their
+    outputs stay outside them), so they are compiled on any backend."""
     compiled = graphs.resolve_jit(jit, mesh)
     settings = settings or ConversionSettings()
     out_sample_rate = out_sample_rate or sample_rate
@@ -160,7 +161,8 @@ def convert_utterance_sp(params, cfg: VoiceConverterConfig, bank, audio, sample_
     zeros = torch.zeros((b,), device=dev)
     zero_counter = torch.zeros((b,), dtype=torch.int64, device=dev)
     kw = dict(compute_dtype=compute_dtype, soft_pitch=settings.soft_pitch)
-    static = ("seqpar", cfg, tuple(kw.items()), graphs.identity(params))
+    static = ("seqpar", cfg, tuple(kw.items()), graphs.identity(params),
+              graphs.mesh_key(mesh))
 
     def pitch_pass(seg16, cond):
         if not compiled:

@@ -227,40 +227,41 @@ class Optimizer:
     that `update`, the device half of a step, can be captured in a CUDA
     graph (the compiled `train_step`), which reads `lr` at its address.
     `prepare`, the host half, writes the schedule's value at the host's
-    count of updates (`count`) into `lr` before each update.  Leaves split
-    over 'model' (`DTensor`s) are updated on their blocks, one tensor at a
-    time (the multi-tensor path takes no mix of `DTensor`s and tensors),
-    and not capturable: their steps always run eagerly."""
+    count of updates (`count`) into `lr` before each update.  AdamW runs
+    over the leaves' blocks (`blocks`): a leaf split over 'model' (a
+    `DTensor`) is updated on its local block, from its gradient's block,
+    so that split and whole leaves go through one capturable update."""
 
     def __init__(self, params, lr: float, *, betas, weight_decay: float, eps: float = 1e-8,
                  schedule=None, clip_norm: float | None = None):
         self.leaves = tree_leaves(params)
+        self.blocks = [graphs.block(p) for p in self.leaves]
         self._kw = dict(lr=lr, betas=betas, weight_decay=weight_decay, eps=eps,
                         schedule=schedule, clip_norm=clip_norm)
         self._lr = lr
         self._schedule = schedule
         self.clip_norm = clip_norm
         self.count = 0
-        split = any(is_sharded(p) for p in self.leaves)
-        dev = self.leaves[0].device
-        capturable = dev.type == "cuda" and not split
+        dev = self.blocks[0].device
+        capturable = dev.type == "cuda"
         # float64 where AdamW is not capturable: the arithmetic of a Python
         # float learning rate, bit for bit
         self.lr = torch.tensor(self._lr_at(0), device=dev,
                                dtype=torch.float32 if capturable else torch.float64)
-        self.adamw = torch.optim.AdamW(self.leaves, lr=self.lr,
-                                       betas=betas, eps=eps, weight_decay=weight_decay,
-                                       foreach=False if split else None, capturable=capturable)
+        self.adamw = torch.optim.AdamW(self.blocks, lr=self.lr, betas=betas, eps=eps,
+                                       weight_decay=weight_decay, capturable=capturable)
         step_dev = dev if capturable else "cpu"
-        for p in self.leaves:
-            self.adamw.state[p] = {"step": torch.zeros((), device=step_dev),
-                                   "exp_avg": torch.zeros_like(p),
-                                   "exp_avg_sq": torch.zeros_like(p)}
+        for b in self.blocks:
+            self.adamw.state[b] = {"step": torch.zeros((), device=step_dev),
+                                   "exp_avg": torch.zeros_like(b),
+                                   "exp_avg_sq": torch.zeros_like(b)}
 
     def _lr_at(self, count: int) -> float:
         return self._lr if self._schedule is None else self._schedule(count)
 
     def zero_grad(self) -> None:
+        for p in self.leaves:
+            p.grad = None
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> None:
@@ -283,22 +284,25 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         if self.clip_norm is not None:
             clip_by_global_norm_([p.grad for p in self.leaves], self.clip_norm)
+        for p, b in zip(self.leaves, self.blocks):
+            if b is not p:
+                b.grad = graphs.block(p.grad)
         self.adamw.step()
         self.zero_grad()
 
     def state_tree(self) -> dict:
         """The state as a tree of tensors and an int, for checkpoints:
-        per leaf AdamW's step, exp_avg and exp_avg_sq; the schedule's
-        count."""
+        per leaf AdamW's step, exp_avg and exp_avg_sq (of its block); the
+        schedule's count."""
         st = self.adamw.state
-        return {"adamw": [{k: st[p][k] for k in ("step", "exp_avg", "exp_avg_sq")}
-                          for p in self.leaves],
+        return {"adamw": [{k: st[b][k] for k in ("step", "exp_avg", "exp_avg_sq")}
+                          for b in self.blocks],
                 "count": 0 if self._schedule is None else self.count}
 
     def load_state_tree(self, tree: dict) -> None:
-        for p, s in zip(self.leaves, tree["adamw"], strict=True):
+        for b, s in zip(self.blocks, tree["adamw"], strict=True):
             for k, v in s.items():
-                self.adamw.state[p][k].copy_(v)
+                self.adamw.state[b][k].copy_(v)
         self.count = int(tree["count"])
 
     def scratch(self, params) -> "Optimizer":
@@ -328,20 +332,30 @@ def compile_update(fn, params: tuple, optimizers: tuple, batch) -> graphs.Compil
                                warmup_args=(*scratch, *scratch_opts, static))
 
 
-def run_update(key, fn, params: tuple, optimizers: tuple, batch):
+def run_update(key, fn, params: tuple, optimizers: tuple, batch, mesh=None):
     """`fn` (as `compile_update` takes it) as a compiled step from the
-    step cache, keyed by `key`, the identity of the leaves and the
-    optimizers, and the batch's signature: each optimizer's host half
-    (`prepare`), the batch copied in, the step run.  Returns its metrics,
-    cloned."""
+    step cache, keyed by `key`, the identity of the leaves (of a split
+    leaf, its block) and the optimizers, the mesh (`graphs.mesh_key`) and
+    the batch's signature: each optimizer's host half (`prepare`), the
+    batch copied in, the step run.  Returns its metrics, cloned.  On a
+    mesh every rank builds and calls the same steps in the same order, so
+    that the collectives of the warm-up calls, the capture and each replay
+    meet their peers'."""
     key = (key, graphs.identity(*params), tuple(id(o) for o in optimizers),
-           graphs.signature(batch))
+           graphs.mesh_key(mesh), graphs.signature(batch))
     step = graphs.CACHE.get(key, lambda: compile_update(fn, params, optimizers, batch))
     with step.lock:
         for opt in optimizers:
             opt.prepare()
         graphs.copy_tree_(step.args[-1], batch)
         return graphs.clone_tree(step())
+
+
+def resolve_step_jit(jit, mesh, split: bool) -> bool:
+    """`graphs.resolve_jit` for a training step: its body issues
+    collectives where the mesh has a 'streams' group (the gradients' sum)
+    or weights are `split` over 'model' (a 1 x 1 mesh splits them too)."""
+    return graphs.resolve_jit(jit, mesh, collectives=dp_group(mesh) is not None or split)
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -381,26 +395,28 @@ def train_step(params, optimizer: Optimizer, batch, *, cfg, f0_weight: float = 1
     target24 [B, T*240], cond[, f0_bin [B, T]]}.  Returns (params,
     optimizer, metrics), the metrics detached tensors.
 
-    Compiled (`jit` None or True without a mesh; `graphs.resolve_jit`),
-    the forward pass, the backward pass, the clip and the AdamW update are
-    one step of the step cache (`run_update`): one CUDA graph on the card,
-    keyed by the identity of the leaves and the optimizer, the batch
-    copied into its static tensors; `jit=False` runs it op by op.
+    Compiled (`resolve_step_jit`: by default wherever a CUDA graph can
+    hold the step), the forward pass, the backward pass, the clip and the
+    AdamW update are one step of the step cache (`run_update`): one CUDA
+    graph on the card, keyed by the identity of the leaves and the
+    optimizer and by the mesh, the batch copied into its static tensors;
+    `jit=False` runs it op by op.
 
     With a `mesh` (`parallel/mesh.py`) whose 'streams' axis has several
     ranks, the batch is this rank's rows (`shard_tree`), the loss is the
     whole batch's and the gradients are summed over 'streams' before the
     update, so every rank's parameters stay the same; weights split over
-    'model' (`DTensor`s) keep their gradients on their blocks."""
+    'model' (`DTensor`s) keep their gradients on their blocks.  The
+    compiled step holds those collectives on NCCL ranks; on gloo ranks on
+    the card it is eager (and `jit=True` raises)."""
     kw = dict(cfg=cfg, f0_weight=f0_weight, soft_pitch=soft_pitch,
-              periodicity_weight=periodicity_weight)
-    if not graphs.resolve_jit(jit, mesh):
-        metrics = _train_step(params, optimizer, batch, optimizer.step, group=dp_group(mesh),
-                              **kw)
+              periodicity_weight=periodicity_weight, group=dp_group(mesh))
+    if not resolve_step_jit(jit, mesh, any(is_sharded(p) for p in tree_leaves(params))):
+        metrics = _train_step(params, optimizer, batch, optimizer.step, **kw)
         return params, optimizer, metrics
     metrics = run_update(("train_step", cfg, f0_weight, soft_pitch, periodicity_weight),
                          lambda p, opt, b: _train_step(p, opt, b, opt.update, **kw),
-                         (params,), (optimizer,), batch)
+                         (params,), (optimizer,), batch, mesh)
     return params, optimizer, metrics
 
 

@@ -20,11 +20,11 @@ from __future__ import annotations
 import torch
 
 from ..models import chain
-from ..parallel.collectives import all_reduce_grads_, dp_group, global_mean
+from ..parallel.collectives import all_reduce_grads_, dp_group, global_mean, is_sharded
 from . import discriminator
-from ..runtime import graphs
 from .distill import (Optimizer, multi_resolution_stft_loss, periodicity_loss,
-                      pitch_supervision_losses, run_update, trainer_config)
+                      pitch_supervision_losses, resolve_step_jit, run_update, trainer_config,
+                      tree_leaves)
 
 LAMBDA_REC = 15.0
 LAMBDA_FM = 2.0
@@ -119,24 +119,29 @@ def gan_train_step(gen_params, disc_params, gen_opt: Optimizer, disc_opt: Optimi
     """One critic step, then one generator step on the same batch
     (`gan.py:111`); the leaves are updated in place.  batch: the
     distillation batch.  Returns (gen_params, disc_params, gen_opt,
-    disc_opt, metrics), the metrics detached.  Compiled (`jit` None or True
-    without a mesh), the no-grad fake, the critic's grads and update and
-    the generator's grads and update are one step of the step cache
+    disc_opt, metrics), the metrics detached.  Compiled
+    (`distill.resolve_step_jit`: by default wherever a CUDA graph can hold
+    the step), the no-grad fake, the critic's grads and update and the
+    generator's grads and update are one step of the step cache
     (`distill.run_update`: one CUDA graph on the card, whose pool owns the
     grads `set_grads` assigns); `jit=False` runs them op by op.  With a
     `mesh` whose 'streams' axis has several ranks, data-parallel as
     `distill.train_step`: this rank's rows, the whole batch's losses, the
-    gradients summed over 'streams' before each update."""
+    gradients summed over 'streams' before each update; with the
+    generator's weights split over 'model', its updates on their blocks.
+    The compiled step holds those collectives on NCCL ranks; on gloo ranks
+    on the card it is eager (and `jit=True` raises)."""
     kw = dict(cfg=cfg, compute_dtype=compute_dtype, soft_pitch=soft_pitch,
-              periodicity_weight=periodicity_weight)
-    if not graphs.resolve_jit(jit, mesh):
+              periodicity_weight=periodicity_weight, group=dp_group(mesh))
+    split = any(is_sharded(p) for p in tree_leaves([gen_params, disc_params]))
+    if not resolve_step_jit(jit, mesh, split):
         metrics = _gan_step(gen_params, disc_params, gen_opt, disc_opt, batch, gen_opt.step,
-                            disc_opt.step, group=dp_group(mesh), **kw)
+                            disc_opt.step, **kw)
     else:
         metrics = run_update(
             ("gan_train_step", cfg, compute_dtype, soft_pitch, periodicity_weight),
             lambda g, d, go, do, b: _gan_step(g, d, go, do, b, go.update, do.update, **kw),
-            (gen_params, disc_params), (gen_opt, disc_opt), batch)
+            (gen_params, disc_params), (gen_opt, disc_opt), batch, mesh)
     return gen_params, disc_params, gen_opt, disc_opt, metrics
 
 

@@ -2,6 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --nccl-ranks N   # a machine with N cards
+
+With `--nccl-ranks N` it runs only the build and the multicard phase:
+the compiled mesh steps across N NCCL ranks, one a card
+(`multicard_phase`), then the card lines and the last line.  Without
+it, on one card:
 
 Phases, each printing one line with its seconds:
   1. env     -- Python, torch and CUDA versions; the card's name and power
@@ -236,12 +242,34 @@ Phases, each printing one line with its seconds:
                 rows, 2 a rank) against the sequential conversion at 1e-3
                 and the unsharded seqpar at 1e-5, and the seqpar golden
                 file's 4 segments (3 rows: not split, JAX's rule) at 1e-3;
+                mesh_graph (the compiled mesh steps, in the same spawn):
+                the compiled stream-sharded tick at 256 on 2 x 1 against
+                the eager rank tick (the mesh_engine run), gathered, max
+                |d| <= GRAPH_TOL, each rank's span, host ms, host launch
+                calls, capture ms and peak MiB beside the eager rank's, in
+                slots f32 and bf16; the golden run compiled on 2 x 1
+                against the golden file and the eager golden run; seqpar
+                compiled on 2 x 1 against eager (max |d| <= GRAPH_TOL) with
+                audio s/s of each.  The tensor-parallel tick and the train
+                steps, whose collectives gloo runs through the host, run
+                eagerly on these ranks (asserted).
                 mesh_nccl: a world-size-1 NCCL group (distributed_init's
                 default backend on CUDA) and a 1 x 1 mesh in this process,
-                one tick of each configuration equal to the unsharded tick.
-                Every mesh path's ranks each launch the configuration's form
-                once a tick.  Two ranks on one card measure processes
-                overlapping on one device, not multi-GPU scaling.
+                one tick of each configuration equal to the unsharded tick;
+                mesh_nccl_graph in that group: the compiled
+                tensor-parallel tick (1 x 1, weights split: the all-reduces
+                in the graph) at 256 against its eager twin, one
+                distillation and one GAN step compiled against eager
+                (losses within 1e-4 relative) with steps/s of each over 6
+                steps, the train golden numbers through the compiled mesh
+                steps, and, after every timing, where the all-reduces sit:
+                the collectives counted while capturing, c10d's host
+                records of them, and one replay's device kernels under
+                torch.profiler.  Every mesh path's ranks each launch the
+                configuration's form once a tick and once a warm-up tick
+                of a compiled tick's capture.  Two ranks on one card
+                measure processes overlapping on one device, not
+                multi-GPU scaling.
  24. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
@@ -251,8 +279,9 @@ engines), the engine configurations, the morph engines, the streaming
 halves of parity, the older versions' engines, the in-process serving
 paths serve_golden, serve_pipeline and serve_ws, the compiled streaming
 halves of parity_graph (their replays and their captures' warm-up
-ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine and
-mesh_nccl, summed over their ranks; the phases from train_golden to
+ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
+mesh_graph (replays and warm-up ticks), mesh_nccl and mesh_nccl_graph,
+summed over their ranks; the phases from train_golden to
 seqpar_graph and from train_graph to feature_distill_graph launch
 neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
@@ -330,7 +359,6 @@ PIPELINE_TOL = 1e-6  # the same device and operations, one tick later
 # values (0 expected)
 GRAPH_TOL = 1e-6
 # the CUDA API calls that put work on a stream
-HOST_LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
 SERVE_TCP_CAPACITY = 64
 SERVE_TCP_CLIENTS = 8
 SERVE_TCP_RATES = (48000, 44100, 16000)
@@ -964,6 +992,7 @@ def chunk_engine(device):
     torch.profiler.  Every output finite and not silent; the kernel never
     launched (the chunk head is the stage loop)."""
     import torch
+    from beatrice_vst_tpu_torch.parallel.checks import host_launch_calls
     from torch.profiler import ProfilerActivity, profile
 
     engines = {"graph": build_engine(device, "slots_f32", frames_per_tick=CHUNK),
@@ -1123,18 +1152,12 @@ def set_morph(engine, controls, n_speakers):
         golden.set_morph(engine, i, pruned, top, n_speakers)
 
 
-def host_launch_calls(prof) -> int:
-    """The host's calls that put work on a stream (kernel and graph
-    launches, copies, fills) in a torch.profiler run."""
-    return sum(e.count for e in prof.key_averages()
-               if e.key.startswith("cu") and any(w in e.key for w in HOST_LAUNCH_WORDS))
-
-
 def tick_launches(engine, audio, ticks):
     """Over `ticks` ticks under torch.profiler: device kernels (and
     copies) per tick, and the host's launch calls per tick
-    (host_launch_calls)."""
+    (parallel/checks.py:host_launch_calls)."""
     import torch
+    from beatrice_vst_tpu_torch.parallel.checks import host_launch_calls
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2405,6 +2428,8 @@ def feature_distill_graph_phase(device, card):
 MESH_RANKS = 2
 MESH_SEQPAR_SEGMENTS = 5  # (s - 1) * B = 4 rows: 2 a rank
 MESH_SEQPAR_TOL = 1e-5  # against the unsharded seqpar: the same operations, other batches
+MESH_SEQPAR_CALLS = 3  # each form's calls on the mesh; the compiled one's first captures
+PROFILED_TICKS = 3  # a rank tick_case whose last tick runs under torch.profiler
 MESH_CONFIGS = ("slots_f32", "slots_bf16")
 # mesh_engine's ticks held at KERNEL_TOL to one process at CAPACITY: before
 # 128- and 256-row GEMMs' roundings have flipped a stream's pitch bin
@@ -2435,33 +2460,52 @@ def mesh_cases(card_audio, params, bank):
     for config in MESH_CONFIGS:
         kw = ENGINE_CONFIGS[config][0]
         gold = dict(params=params, bank=bank, audio=gold_audio, version=rc0,
-                    capacity=golden.CAPACITY, admit="golden", engine_kw=kw, keep_state=False)
-        cases.append((f"golden_{config}", checks.tick_case, dict(gold, mesh_shape=(2, 1))))
+                    capacity=golden.CAPACITY, admit="golden", engine_kw=kw, keep_state=False,
+                    mesh_shape=(2, 1))
+        engine = dict(params=params, bank=bank, audio=card_audio, version=rc0,
+                      capacity=CAPACITY, admit=controls, engine_kw=kw, keep_state=False,
+                      mesh_shape=(2, 1))
+        # the eager twins (jit=False) and the compiled rank ticks (jit None)
+        cases.append((f"golden_{config}", checks.tick_case, dict(gold, jit=False)))
+        cases.append((f"graph_golden_{config}", checks.tick_case, gold))
+        # on gloo ranks the tensor-parallel tick, whose all-reduces no graph
+        # can hold, runs eagerly (graphs.resolve_jit)
         cases.append((f"tp_{config}", checks.tick_case,
                       dict(gold, mesh_shape=(1, 2), model_parallel=True)))
-        cases.append((f"engine_{config}", checks.tick_case,
-                      dict(params=params, bank=bank, audio=card_audio, version=rc0,
-                           capacity=CAPACITY, admit=controls, engine_kw=kw, keep_state=False,
-                           mesh_shape=(2, 1))))
+        cases.append((f"engine_{config}", checks.tick_case, dict(engine, jit=False)))
+        cases.append((f"graph_engine_{config}", checks.tick_case, engine))
     cases.append(("train", checks.train_golden_case,
                   dict(params=params, bank=bank, batch=batch, mesh_shape=(2, 1))))
     cases.append(("tp_train", checks.train_golden_case,
                   dict(params=params, bank=bank, batch=batch, mesh_shape=(1, 2),
                        model_parallel=True)))
     long = golden.offline_signal(seconds=SEQPAR_SECONDS)
-    for name, audio, n in (("seqpar", long, MESH_SEQPAR_SEGMENTS),
-                           ("seqpar_golden", golden.offline_signal(), golden.SEQPAR_SEGMENTS)):
+    for name, audio, n, kw in (
+            ("seqpar", long, MESH_SEQPAR_SEGMENTS, dict(jit=False, calls=MESH_SEQPAR_CALLS)),
+            ("graph_seqpar", long, MESH_SEQPAR_SEGMENTS, dict(calls=MESH_SEQPAR_CALLS)),
+            ("seqpar_golden", golden.offline_signal(), golden.SEQPAR_SEGMENTS, {})):
         cases.append((name, checks.seqpar_case,
                       dict(params=params, bank=bank, audio=audio, rate=golden.OFFLINE_RATE,
-                           n_segments=n, version=rc0, settings=settings, mesh_shape=(2, 1))))
+                           n_segments=n, version=rc0, settings=settings, mesh_shape=(2, 1),
+                           **kw)))
+    # after every timed case: the host's launch calls of a rank tick, each
+    # form, under torch.profiler (which slows later eager ticks)
+    for config in MESH_CONFIGS:
+        for mode, jit in (("eager", False), ("graph", None)):
+            cases.append((f"calls_{mode}_{config}", checks.tick_case,
+                          dict(params=params, bank=bank, audio=card_audio[:PROFILED_TICKS],
+                               version=rc0, capacity=CAPACITY, admit=controls,
+                               engine_kw=ENGINE_CONFIGS[config][0], keep_state=False,
+                               mesh_shape=(2, 1), jit=jit, profile=True)))
     return cases, controls, long, settings
 
 
 def rank_launches(label, results, form, ticks):
-    """Each rank's launches of `form` in its ticks: one per tick, none of
-    the other form.  Returns their sum."""
+    """Each rank's launches of `form` in its ticks: one per tick and one
+    per warm-up tick of a compiled tick's capture, none of the other form.
+    Returns their sum."""
     for r, res in enumerate(results):
-        want = {f: ticks if f == form else 0 for f in res["launches"]}
+        want = {f: ticks + res["warmup_ticks"] if f == form else 0 for f in res["launches"]}
         if res["launches"] != want:
             raise AssertionError(f"{label}: rank {r} launched {res['launches']} in {ticks} "
                                  f"ticks, expected {want}")
@@ -2500,6 +2544,8 @@ def mesh_phases(device, card, by_path):
         for kind, shape in (("golden", [2, 1]), ("tp", [1, 2])):
             t = time.perf_counter()
             runs = [res[f"{kind}_{config}"] for res in results]
+            if any(run["compiled"] for run in runs):
+                raise AssertionError(f"mesh_{kind} {config}: an eager rank tick ran compiled")
             gates = [golden_gate(f"mesh_{kind} {config} rank {r}", form, run["out"],
                                  ref["f32"], ref["bf16"]) for r, run in enumerate(runs)]
             by_path[form][f"mesh_{kind}_{config}"] = rank_launches(
@@ -2517,7 +2563,7 @@ def mesh_phases(device, card, by_path):
         runs = [res[f"engine_{config}"] for res in results]
         got = runs[0]["out"]
         kw = dict(version="2.0.0-rc.0", engine_kw=ENGINE_CONFIGS[config][0], keep_state=False,
-                  device=device)
+                  jit=False, device=device)
         single = checks.tick_case(params, bank, card_audio, capacity=CAPACITY, admit=controls,
                                   **kw)
         rows = CAPACITY // MESH_RANKS
@@ -2559,8 +2605,11 @@ def mesh_phases(device, card, by_path):
     want = golden.load(TRAIN_GOLDEN)
     for kind, shape in (("train", [2, 1]), ("tp_train", [1, 2])):
         worst, failed = {}, []
+        if any(res[kind]["compiled"] for res in results):
+            raise AssertionError(f"mesh {kind}: a step whose collectives gloo runs through "
+                                 "the host ran compiled")
         for r, res in enumerate(results):
-            for key, value in res[kind].items():
+            for key, value in res[kind]["numbers"].items():
                 ok, dev, bound = golden.train_gate(key, value, float(want[key]))
                 if dev > worst.get(key.split("/")[0], (0.0, ""))[0]:
                     worst[key.split("/")[0]] = (dev, key)
@@ -2570,7 +2619,8 @@ def mesh_phases(device, card, by_path):
             raise AssertionError(f"mesh {kind}: {len(failed)} numbers off the golden file: "
                                  f"{failed[:8]}")
         log("mesh_tp" if kind == "tp_train" else "mesh_train", t, mesh=shape,
-            steps="distill + gan, each with its second step", numbers=len(results[0][kind]),
+            steps="distill + gan, each with its second step, eager on gloo ranks",
+            numbers=len(results[0][kind]["numbers"]),
             worst=worst, loss_rtol=golden.TRAIN_LOSS_RTOL, grad_rtol=golden.TRAIN_GRAD_RTOL,
             nvidia_smi=card)
 
@@ -2582,9 +2632,9 @@ def mesh_phases(device, card, by_path):
     gold = golden.load(SEQPAR_GOLDEN)["f32"]
     out = {}
     for r, res in enumerate(results):
-        vs_seq = golden.deviation(res["seqpar"], sequential)
-        vs_sp = golden.deviation(res["seqpar"], unsharded)
-        vs_gold = golden.deviation(res["seqpar_golden"], gold)
+        vs_seq = golden.deviation(res["seqpar"]["out"], sequential)
+        vs_sp = golden.deviation(res["seqpar"]["out"], unsharded)
+        vs_gold = golden.deviation(res["seqpar_golden"]["out"], gold)
         if not (vs_seq["max"] <= golden.F32_ATOL and vs_sp["max"] <= MESH_SEQPAR_TOL
                 and vs_gold["max"] <= golden.F32_ATOL):
             raise AssertionError(f"mesh_seqpar rank {r}: vs sequential {vs_seq}, vs "
@@ -2594,13 +2644,94 @@ def mesh_phases(device, card, by_path):
         golden_segments=golden.SEQPAR_SEGMENTS, ranks=out,
         tol={"sequential": golden.F32_ATOL, "unsharded": MESH_SEQPAR_TOL}, nvidia_smi=card)
 
+    mesh_graph_phase(results, card, ref, by_path)
     mesh_nccl_phase(device, card, params, bank, controls, card_audio, by_path)
+
+
+def rank_tick_stats(res, calls):
+    """tick_stats of a rank's tick_case run with its mode, capture ms and
+    warm-up ticks, and the host launch calls of the profiled tick of
+    `calls` (a short run of the same form)."""
+    return {**tick_stats(res), "compiled": res["compiled"], "capture_ms": res["capture_ms"],
+            "host_launch_calls_per_tick": calls["host_launch_calls"],
+            "warmup_ticks": res["warmup_ticks"]}
+
+
+def mesh_graph_phase(results, card, ref, by_path):
+    """The compiled mesh steps in the 2-rank gloo group (ROADMAP C9): for
+    each of MESH_CONFIGS the compiled stream-sharded tick (no collective
+    in it, so compiled on gloo ranks) at CAPACITY on 2 x 1, gathered,
+    against the eager rank tick (max |d| <= GRAPH_TOL), each rank's
+    median and p90 span, host ms, host launch calls, capture ms and peak
+    MiB beside the eager rank's; the golden run compiled on 2 x 1 against
+    the golden file and the eager golden run; seqpar compiled on 2 x 1
+    against eager (max |d| <= GRAPH_TOL) with audio seconds per second of
+    each (on the median of the calls after the first: the compiled first
+    call captures)."""
+    from beatrice_vst_tpu_torch import golden
+
+    for config in MESH_CONFIGS:
+        t = time.perf_counter()
+        form = ENGINE_CONFIGS[config][1]
+        out = {}
+        for kind, ticks in (("engine", TICKS), ("golden", golden.TICKS)):
+            graph = [res[f"graph_{kind}_{config}"] for res in results]
+            eager = [res[f"{kind}_{config}"] for res in results]
+            modes = [(g["compiled"], e["compiled"]) for g, e in zip(graph, eager)]
+            if modes != [(True, False)] * len(results):
+                raise AssertionError(f"mesh_graph {kind} {config}: (compiled, eager) modes "
+                                     f"{modes}")
+            diff = max(float(np.abs(g["out"] - e["out"]).max()) for g, e in zip(graph, eager))
+            level = float(np.abs(eager[0]["out"]).max())
+            if not diff <= GRAPH_TOL or not np.isfinite(graph[0]["out"]).all() or level <= 1e-3:
+                raise AssertionError(f"mesh_graph {kind} {config}: compiled vs eager rank tick "
+                                     f"max|d| {diff} (tol {GRAPH_TOL}; output level {level})")
+            if not np.array_equal(graph[0]["out"], graph[1]["out"]):
+                raise AssertionError(f"mesh_graph {kind} {config}: the ranks gathered other "
+                                     "outputs")
+            by_path[form][f"mesh_graph_{kind}_{config}"] = rank_launches(
+                f"mesh_graph {kind} {config}", graph, form, ticks)
+            out[kind] = {"max_abs_diff_graph_vs_eager": diff,
+                         "launches_per_rank": [g["launches"] for g in graph]}
+            if kind == "golden":
+                out[kind]["golden"] = [golden_gate(f"mesh_graph golden {config} rank {r}", form,
+                                                   g["out"], ref["f32"], ref["bf16"])
+                                       for r, g in enumerate(graph)]
+            else:
+                out[kind]["ranks"] = {
+                    mode: [rank_tick_stats(run, res[f"calls_{mode}_{config}"])
+                           for run, res in zip(runs, results)]
+                    for mode, runs in (("graph", graph), ("eager", eager))}
+                by_path[form][f"mesh_graph_calls_{config}"] = sum(
+                    rank_launches(f"mesh_graph calls {mode} {config}",
+                                  [res[f"calls_{mode}_{config}"] for res in results], form,
+                                  PROFILED_TICKS) for mode in ("graph", "eager"))
+        log("mesh_graph", t, config=config, capacity=CAPACITY, mesh=[2, 1], ticks=TICKS,
+            golden_ticks=golden.TICKS, tol=GRAPH_TOL, **out,
+            note="two gloo ranks sharing one card: process overlap, not multi-GPU scaling",
+            nvidia_smi=card)
+
+    t = time.perf_counter()
+    seq = {}
+    for r, res in enumerate(results):
+        graph, eager = res["graph_seqpar"], res["seqpar"]
+        diff = float(np.abs(graph["out"] - eager["out"]).max())
+        if not graph["compiled"] or eager["compiled"] or not diff <= GRAPH_TOL:
+            raise AssertionError(f"mesh_graph seqpar rank {r}: compiled {graph['compiled']}, "
+                                 f"eager {eager['compiled']}, max|d| {diff}")
+        seq[r] = {"max_abs_diff_graph_vs_eager": diff,
+                  "graph_audio_seconds_per_s": SEQPAR_SECONDS / np.median(graph["seconds"][1:]),
+                  "eager_audio_seconds_per_s": SEQPAR_SECONDS / np.median(eager["seconds"][1:]),
+                  "graph_seconds": graph["seconds"], "eager_seconds": eager["seconds"]}
+    log("mesh_graph", t, path="seqpar", mesh=[2, 1], seconds=SEQPAR_SECONDS,
+        segments=MESH_SEQPAR_SEGMENTS, ranks=seq, tol=GRAPH_TOL, nvidia_smi=card)
 
 
 def mesh_nccl_phase(device, card, params, bank, controls, card_audio, by_path):
     """A world-size-1 NCCL group (distributed_init's default backend on
     CUDA, env:// rendezvous) and a 1 x 1 mesh in this process: one tick
-    of each configuration equal to the unsharded tick, to 0.0."""
+    of each configuration equal to the unsharded tick, to 0.0; then, in
+    the same group, mesh_nccl_graph."""
     import torch
     import torch.distributed as dist
     from beatrice_vst_tpu_torch.parallel import checks, distributed_init
@@ -2626,12 +2757,367 @@ def mesh_nccl_phase(device, card, params, bank, controls, card_audio, by_path):
                 raise AssertionError(f"mesh_nccl {config}: 1 x 1 mesh vs unsharded: {diff}")
             by_path[form][f"mesh_nccl_{config}"] = rank_launches(
                 f"mesh_nccl {config}", [sharded], form, 1)
-            out[config] = {"max_abs_diff": diff, "launches": sharded["launches"]}
+            by_path[form][f"mesh_nccl_plain_{config}"] = rank_launches(
+                f"mesh_nccl plain {config}", [plain], form, 1)
+            out[config] = {"max_abs_diff": diff, "launches": sharded["launches"],
+                           "compiled": sharded["compiled"]}
+        if backend != "nccl" or float(one) != 1.0:
+            raise AssertionError(f"mesh_nccl: backend {backend}, all_reduce gave {float(one)}")
+        log("mesh_nccl", t0, backend=backend, mesh=[1, 1], configs=out, nvidia_smi=card)
+        mesh_nccl_graph_phase(device, card, params, bank, controls, card_audio, by_path)
     finally:
         dist.destroy_process_group()
-    if backend != "nccl" or float(one) != 1.0:
-        raise AssertionError(f"mesh_nccl: backend {backend}, all_reduce gave {float(one)}")
-    log("mesh_nccl", t0, backend=backend, mesh=[1, 1], configs=out, nvidia_smi=card)
+
+
+NCCL_GRAPH_TICKS = 60
+NCCL_TRAIN_STEPS = 6  # each form's steps; the rate is over the steps after the first
+
+
+def nccl_in_graph(device, params, bank, controls):
+    """Where the tensor-parallel tick's NCCL all-reduces sit, after every
+    timing in the process: a TickStep on the 1 x 1 mesh with the weights
+    split, captured under torch.profiler: the collectives check_capture
+    counted while it captured, and c10d's host records of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.parallel import make_mesh, params_sharding, shard_tree
+    from beatrice_vst_tpu_torch.parallel import mesh as mesh_mod
+    from beatrice_vst_tpu_torch.parallel import state_sharding
+    from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, StreamEngine, TickStep
+
+    cfg = EngineConfig.realtime(CAPACITY, V20RC0, **ENGINE_CONFIGS["slots_f32"][0])
+    eng = StreamEngine(cfg, params, bank, device=device, jit=False)
+    for c in controls:
+        i = eng.admit()
+        for field, value in c.items():
+            eng.set_control(i, field, value)
+    eng.flush_controls()
+    mesh = make_mesh(1, 1, device_type="cuda")
+    p = shard_tree(eng.params, params_sharding(eng.params, mesh, model_parallel=True), mesh)
+    state = shard_tree(eng.state, state_sharding(eng.state, mesh, capacity=CAPACITY), mesh)
+    before = mesh_mod.captured_collectives
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tick = TickStep(p, eng.bank, state, cfg=cfg, mesh=mesh)
+    return {"compiled": tick.compiled,
+            "collectives_captured": mesh_mod.captured_collectives - before,
+            "c10d_host_records_in_warmups_and_capture": {
+                e.key: e.count for e in prof.key_averages() if e.key.startswith("nccl:")}}
+
+
+def mesh_nccl_graph_phase(device, card, params, bank, controls, card_audio, by_path):
+    """The compiled mesh steps whose bodies issue NCCL collectives, on the
+    world-size-1 NCCL group of mesh_nccl (1 x 1, the weights split over
+    'model': the all-reduces of the forward, the backward and the clip):
+    for each of MESH_CONFIGS the compiled tensor-parallel tick at CAPACITY
+    against its eager twin (max |d| <= GRAPH_TOL), spans, host ms,
+    capture ms; one distillation and one GAN step compiled
+    against eager (losses within TRAIN_GRAPH_RTOL relative) and
+    NCCL_TRAIN_STEPS steps each for steps/s; the train golden numbers
+    through the compiled mesh steps (golden.train_gate); then, after
+    every timing, each tick form's host launch calls in a profiled tick
+    and nccl_in_graph.  Every compiled form asserted compiled."""
+    import torch
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.parallel import checks
+
+    rc0 = "2.0.0-rc.0"
+    for config in MESH_CONFIGS:
+        t = time.perf_counter()
+        form = ENGINE_CONFIGS[config][1]
+        kw = dict(params=params, bank=bank, audio=card_audio[:NCCL_GRAPH_TICKS], version=rc0,
+                  capacity=CAPACITY, admit=controls, engine_kw=ENGINE_CONFIGS[config][0],
+                  keep_state=False, mesh_shape=(1, 1), model_parallel=True, device=device)
+        runs = {"eager": checks.tick_case(jit=False, **kw), "graph": checks.tick_case(**kw)}
+        graph, eager = runs["graph"], runs["eager"]
+        diff = float(np.abs(graph["out"] - eager["out"]).max())
+        if not graph["compiled"] or eager["compiled"] or not graph["captured_collectives"]:
+            raise AssertionError(f"mesh_nccl_graph tick {config}: compiled {graph['compiled']}, "
+                                 f"eager {eager['compiled']}, collectives captured "
+                                 f"{graph['captured_collectives']}")
+        if not diff <= GRAPH_TOL or not np.isfinite(graph["out"]).all():
+            raise AssertionError(f"mesh_nccl_graph tick {config}: compiled vs eager max|d| "
+                                 f"{diff}")
+        by_path[form][f"mesh_nccl_graph_{config}"] = (
+            rank_launches(f"mesh_nccl_graph {config}", [graph], form, NCCL_GRAPH_TICKS)
+            + rank_launches(f"mesh_nccl_graph eager {config}", [eager], form,
+                            NCCL_GRAPH_TICKS))
+        log("mesh_nccl_graph", t, path="tick", config=config, mesh=[1, 1],
+            model_parallel=True, capacity=CAPACITY, ticks=NCCL_GRAPH_TICKS,
+            max_abs_diff_graph_vs_eager=diff, tol=GRAPH_TOL,
+            collectives_captured=graph["captured_collectives"],
+            **{name: {**tick_stats_ms(r["span_ms"], r["host_ms"], WARMUP_TICKS),
+                      "compiled": r["compiled"], "capture_ms": r["capture_ms"],
+                      "peak_mib": r["peak_mib"], "launches": r["launches"]}
+               for name, r in runs.items()}, nvidia_smi=card)
+
+    t = time.perf_counter()
+    batch = golden.train_batch(batch=TRAIN_BATCH, frames=TRAIN_FRAMES)
+    reset_launch_counts()
+    steps = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, fn, extra in (("distill", checks.distill_case, {}),
+                                ("gan", checks.gan_case, {"disc": golden.disc_params()})):
+            runs = {mode: fn(params, bank, batch, version=rc0, mesh_shape=(1, 1),
+                             model_parallel=True, jit=jit, steps=NCCL_TRAIN_STEPS,
+                             device=device, **extra)
+                    for mode, jit in (("graph", None), ("eager", False))}
+            graph, eager = runs["graph"], runs["eager"]
+            dev = max(abs(graph["metrics"][k] - v) / max(abs(v), 1e-12)
+                      for k, v in eager["metrics"].items())
+            params_diff = max(float(np.abs(graph[k][leaf] - eager[k][leaf]).max())
+                              for k in ("params", "g", "d") if k in eager
+                              for leaf in eager[k])
+            if not graph["compiled"] or eager["compiled"] or not dev <= TRAIN_GRAPH_RTOL \
+                    or not graph["captured_collectives"]:
+                raise AssertionError(f"mesh_nccl_graph {name}: compiled {graph['compiled']}, "
+                                     f"losses max rel dev {dev}, collectives captured "
+                                     f"{graph['captured_collectives']}")
+            steps[name] = {
+                "losses_max_rel_dev": dev, "params_max_abs_diff_after_steps": params_diff,
+                "collectives_captured": graph["captured_collectives"],
+                **{f"{mode}_steps_per_s": (len(r["step_s"]) - 1) / sum(r["step_s"][1:])
+                   for mode, r in runs.items()},
+                "graph_first_step_s": graph["step_s"][0], "capture_ms": graph["capture_ms"]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = golden.load(TRAIN_GOLDEN)
+    gold = checks.train_golden_case(
+        params, bank, {k: want[f"batch/{k}"] for k in ("audio16", "target24", "f0_bin")},
+        mesh_shape=(1, 1), model_parallel=True, device=device)
+    failed, worst = [], (0.0, "")
+    for key, value in gold["numbers"].items():
+        ok, d, bound = golden.train_gate(key, value, float(want[key]))
+        worst = max(worst, (d, key))
+        if not ok:
+            failed.append((key, value, float(want[key]), d, bound))
+    if not gold["compiled"] or failed:
+        raise AssertionError(f"mesh_nccl_graph train golden: compiled {gold['compiled']}, "
+                             f"{len(failed)} numbers off: {failed[:8]}")
+    counts = no_upsampler_launches("mesh_nccl_graph training")
+    log("mesh_nccl_graph", t, path="train", mesh=[1, 1], model_parallel=True,
+        batch=[TRAIN_BATCH, TRAIN_FRAMES], steps=NCCL_TRAIN_STEPS, tol=TRAIN_GRAPH_RTOL,
+        **steps, train_golden={"numbers": len(gold["numbers"]), "worst": worst,
+                               "compiled": gold["compiled"]},
+        kernel_launches=counts, nvidia_smi=card)
+
+    t = time.perf_counter()  # after every timing: the profiled runs
+    calls = {}
+    for config in MESH_CONFIGS:
+        form = ENGINE_CONFIGS[config][1]
+        for mode, jit in (("eager", False), ("graph", None)):
+            r = checks.tick_case(params, bank, card_audio[:PROFILED_TICKS], rc0, CAPACITY,
+                                 mesh_shape=(1, 1), model_parallel=True, admit=controls,
+                                 engine_kw=ENGINE_CONFIGS[config][0], keep_state=False,
+                                 jit=jit, profile=True, device=device)
+            calls[f"{mode}_{config}"] = {"host_launch_calls": r["host_launch_calls"],
+                                         "replay_nccl_kernels": r["nccl_kernels"]}
+            by_path[form][f"mesh_nccl_graph_calls_{mode}_{config}"] = rank_launches(
+                f"mesh_nccl_graph calls {mode} {config}", [r], form, PROFILED_TICKS)
+    reset_launch_counts()
+    where = nccl_in_graph(device, params, bank, controls)
+    by_path["float32"]["mesh_nccl_in_graph"] = launch_counts()["float32"]
+    if not where["compiled"] or not where["collectives_captured"]:
+        raise AssertionError(f"mesh_nccl_graph: no NCCL collective inside the graph: {where}")
+    log("mesh_nccl_graph", t, path="nccl_in_graph", **where,
+        tensor_parallel_tick_profiled=calls,
+        note="world size 1: NCCL runs an in-place sum of one rank without a kernel, so a "
+        "replay shows none",
+        nvidia_smi=card)
+
+
+MULTICARD_LIMIT_S = 900  # the NCCL group: imports, one context a card, every case
+
+
+def multicard_cases(params, bank, audio, controls, n, batch, frames):
+    """The cases every rank of an n-rank NCCL group runs in the
+    `--nccl-ranks` mode, one rank a card: on an n x 1 mesh the
+    stream-sharded tick, on the tensor-parallel mesh (n/2 x 2, or 1 x n)
+    the tick with the weights split, each eager (jit=False) and compiled
+    (jit None), in both MESH_CONFIGS; the distillation and GAN steps on
+    the tensor-parallel mesh with the weights split, eager and compiled,
+    NCCL_TRAIN_STEPS steps each; the train golden numbers through the
+    compiled steps there; the dry run; then, after every timing, each
+    configuration's compiled tensor-parallel tick with its last tick
+    under torch.profiler (the NCCL kernels of one replay)."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.parallel import checks
+    from beatrice_vst_tpu_torch.parallel.dryrun import dryrun_rank
+
+    rc0 = "2.0.0-rc.0"
+    tp = (n // 2, 2) if n % 2 == 0 and n > 2 else (1, n)
+    capacity = audio.shape[1]
+    cases = [("bringup", checks.bringup_case, {"mesh_shape": tp})]
+    tick = {config: dict(params=params, bank=bank, audio=audio, version=rc0,
+                         capacity=capacity, admit=controls,
+                         engine_kw=ENGINE_CONFIGS[config][0], keep_state=False)
+            for config in MESH_CONFIGS}
+    for config in MESH_CONFIGS:
+        for kind, shape, split in (("streams", (n, 1), False), ("tp", tp, True)):
+            for mode, jit in (("eager", False), ("graph", None)):
+                cases.append((f"{kind}_{mode}_{config}", checks.tick_case,
+                              dict(tick[config], mesh_shape=shape, model_parallel=split,
+                                   jit=jit)))
+    train = golden.train_batch(batch=batch, frames=frames)
+    for name, fn, extra in (("distill", checks.distill_case, {}),
+                            ("gan", checks.gan_case, {"disc": golden.disc_params()})):
+        for mode, jit in (("eager", False), ("graph", None)):
+            cases.append((f"{name}_{mode}", fn,
+                          dict(params=params, bank=bank, batch=train, version=rc0,
+                               mesh_shape=tp, model_parallel=True, jit=jit,
+                               steps=NCCL_TRAIN_STEPS, **extra)))
+    want = golden.load(TRAIN_GOLDEN)
+    cases.append(("train_golden", checks.train_golden_case,
+                  dict(params=params, bank=bank, mesh_shape=tp, model_parallel=True,
+                       batch={k: want[f"batch/{k}"] for k in ("audio16", "target24",
+                                                               "f0_bin")})))
+    cases.append(("dryrun", dryrun_rank, {"rank": None, "n_devices": n}))
+    for config in MESH_CONFIGS:
+        cases.append((f"profiled_tp_{config}", checks.tick_case,
+                      dict(tick[config], audio=audio[:PROFILED_TICKS], mesh_shape=tp,
+                           model_parallel=True, profile=True)))
+    return cases, tp
+
+
+def multicard_phase(device, card, n, ticks=NCCL_GRAPH_TICKS, capacity=CAPACITY,
+                    batch=TRAIN_BATCH, frames=TRAIN_FRAMES, spawn=None):
+    """The compiled mesh steps across n cards (`--nccl-ranks n`): every
+    case of `multicard_cases` in one n-rank NCCL group (`spawn_nccl_ranks`,
+    rank r on card r), held as mesh_graph and mesh_nccl_graph hold them:
+    each compiled tick equal to its eager twin (max |d| <= GRAPH_TOL) and
+    the same on every rank, each compiled train step's losses within
+    TRAIN_GRAPH_RTOL of the eager step's, collectives captured in every
+    collective-holding graph, the train golden numbers
+    (golden.train_gate), the dry run finite and compiled, and NCCL
+    kernels in a replay of the tensor-parallel tick on every rank.
+    Returns each form's launches."""
+    from beatrice_vst_tpu_torch import golden
+    from beatrice_vst_tpu_torch.parallel import checks, spawn_nccl_ranks
+    from beatrice_vst_tpu_torch.speakers.bank import n_speakers
+
+    t0 = time.perf_counter()
+    cfg, params, bank = klatt8_numpy()
+    audio = engine_audio("cpu", frames=ticks).numpy()[:, :capacity]
+    controls = stream_controls(capacity, n_speakers(bank))
+    cases, tp = multicard_cases(params, bank, audio, controls, n, batch, frames)
+    spawn = spawn or spawn_nccl_ranks
+    cuda = device.type == "cuda"  # the CPU, for a dry run: no capture, no kernel
+    results = spawn(n, checks.run_cases, device.type, cases, limit_s=MULTICARD_LIMIT_S)
+    spawn_s = time.perf_counter() - t0
+    launches = {form: 0 for form in KERNEL_NAME}
+    backends = {r["bringup"]["backend"] for r in results}
+    for config in MESH_CONFIGS:
+        t = time.perf_counter()
+        form = ENGINE_CONFIGS[config][1]
+        out = {}
+        for kind, shape in (("streams", [n, 1]), ("tp", list(tp))):
+            eager = [r[f"{kind}_eager_{config}"] for r in results]
+            graph = [r[f"{kind}_graph_{config}"] for r in results]
+            diff = max(float(np.abs(g["out"] - e["out"]).max()) for g, e in zip(graph, eager))
+            same = all(np.array_equal(g["out"], graph[0]["out"]) for g in graph)
+            held = [g["captured_collectives"] for g in graph]
+            if not all(g["compiled"] and not e["compiled"] for g, e in zip(graph, eager)) \
+                    or not diff <= GRAPH_TOL or not same or not np.isfinite(graph[0]["out"]).all() \
+                    or cuda and (kind == "tp") != all(held):
+                raise AssertionError(f"multicard {kind} {config}: compiled vs eager max|d| "
+                                     f"{diff}, ranks equal {same}, collectives captured {held}")
+            for runs in (graph, eager):
+                if cuda:
+                    launches[form] += rank_launches(f"multicard {kind} {config}", runs, form,
+                                                    ticks)
+            out[kind] = {"mesh": shape, "rows_per_rank": graph[0]["rows"],
+                         "max_abs_diff_graph_vs_eager": diff, "collectives_captured": held,
+                         **{mode: [{**(tick_stats_ms(r["span_ms"], r["host_ms"],
+                                                     min(WARMUP_TICKS, ticks // 2))
+                                       if cuda else {}),
+                                    "capture_ms": r["capture_ms"], "peak_mib": r["peak_mib"]}
+                                   for r in runs]
+                            for mode, runs in (("graph", graph), ("eager", eager))}}
+        profiled = [r[f"profiled_tp_{config}"] for r in results]
+        nccl = [r["nccl_kernels"] for r in profiled]
+        if cuda:
+            launches[form] += rank_launches(f"multicard profiled {config}", profiled, form,
+                                            PROFILED_TICKS)
+        if cuda and not all(nccl):
+            raise AssertionError(f"multicard {config}: no NCCL kernel in a replay of the "
+                                 f"tensor-parallel tick's graph: {nccl}")
+        log("multicard", t, config=config, ranks=n, backend=sorted(backends), ticks=ticks,
+            capacity=capacity, tol=GRAPH_TOL, **out,
+            replay_nccl_kernels_per_rank=nccl,
+            replay_host_launch_calls_per_rank=[r["host_launch_calls"] for r in profiled],
+            spawn_seconds=spawn_s, nvidia_smi=card)
+
+    t = time.perf_counter()
+    steps = {}
+    for name in ("distill", "gan"):
+        eager = [r[f"{name}_eager"] for r in results]
+        graph = [r[f"{name}_graph"] for r in results]
+        dev = max(abs(g["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for g, e in zip(graph, eager) for k, v in e["metrics"].items())
+        held = [g["captured_collectives"] for g in graph]
+        if not all(g["compiled"] and not e["compiled"] for g, e in zip(graph, eager)) \
+                or not dev <= TRAIN_GRAPH_RTOL or cuda and not all(held):
+            raise AssertionError(f"multicard {name}: losses max rel dev {dev}, collectives "
+                                 f"captured {held}")
+        steps[name] = {"losses_max_rel_dev": dev, "collectives_captured": held,
+                       **{f"{mode}_steps_per_s": [(len(r["step_s"]) - 1) / sum(r["step_s"][1:])
+                                                  for r in runs]
+                          for mode, runs in (("graph", graph), ("eager", eager))},
+                       "capture_ms": [g["capture_ms"] for g in graph]}
+    want = golden.load(TRAIN_GOLDEN)
+    failed, worst = [], (0.0, "")
+    for r, res in enumerate(results):
+        if not res["train_golden"]["compiled"]:
+            raise AssertionError(f"multicard train golden: rank {r} ran eagerly")
+        for key, value in res["train_golden"]["numbers"].items():
+            ok, d, bound = golden.train_gate(key, value, float(want[key]))
+            worst = max(worst, (d, key))
+            if not ok:
+                failed.append((r, key, value, float(want[key]), d, bound))
+    if failed:
+        raise AssertionError(f"multicard train golden: {len(failed)} numbers off: "
+                             f"{failed[:8]}")
+    dry = [r["dryrun"] for r in results]
+    if not all(np.isfinite(d["loss"]) and d["tick_finite"] and all(d["compiled"].values())
+               for d in dry):
+        raise AssertionError(f"multicard dry run: {dry}")
+    log("multicard", t, path="train", ranks=n, mesh=list(tp), model_parallel=True,
+        batch=[batch, frames], steps=NCCL_TRAIN_STEPS, tol=TRAIN_GRAPH_RTOL, **steps,
+        train_golden={"worst": worst}, dryrun={"mesh": dry[0]["mesh"], "loss": dry[0]["loss"],
+                                               "compiled": dry[0]["compiled"]},
+        nvidia_smi=card)
+    return launches
+
+
+def multicard_main(n: int) -> int:
+    """`--nccl-ranks n`: the build, then multicard_phase on n cards; the
+    card lines, and the last line with the card count."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    log("env", t0, python=platform.python_version(), torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        device_count=torch.cuda.device_count(), nvidia_smi=card)
+    from beatrice_vst_tpu_torch import cuda_build
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    t0 = time.perf_counter()
+    log("build", t0, built=sorted(cuda_build.build(sorted(set(FU.FORMS.values())))))
+    launches = multicard_phase(device, card, n)
+    print(json.dumps({"multicard_launches": launches}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main() -> int:
@@ -2717,4 +3203,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--nccl-ranks" in sys.argv[1:]:
+        sys.exit(multicard_main(int(sys.argv[sys.argv.index("--nccl-ranks") + 1])))
     sys.exit(main())

@@ -7,7 +7,7 @@ twin (`jit=False`) exactly, over several calls: offline conversion
 chunked (f32 and bf16) and whole (argmax and soft pitch), seqpar's two
 passes, parity's streaming half.  Also: the step cache (one capture a
 key, a new one for a new shape or another model's tensors, the LRU
-bound, the counters), the donated write, the `jit` flag with a mesh, and
+bound, the counters), the donated write, the `jit` flag on a mesh, and
 `convert_utterance(jit=True)` and `run_parity(jit=True)` against the JAX
 package at the 1e-3 gate.  The model is the shallow 2.0.0-rc.0
 configuration of tests/test_seqpar.py with the JAX package's `init`.
@@ -134,30 +134,54 @@ def test_signature_and_identity():
 
 # ---- the jit flag ----
 
-def test_resolve_jit():
+class _GlooMesh:
+    """What resolve_jit and dp_group read of a 2 x 1 `DeviceMesh` of gloo
+    ranks on the card (`parallel/mesh.py:backend` is patched to read
+    `backend`)."""
+    mesh_dim_names, shape, device_type, backend = ("streams", "model"), (2, 1), "cuda", "gloo"
+
+    def get_group(self, name):
+        return (self, name)
+
+
+@pytest.fixture
+def gloo_mesh(monkeypatch):
+    from beatrice_vst_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(mesh_mod, "backend", lambda m: m.backend)
+    return _GlooMesh()
+
+
+def test_resolve_jit(gloo_mesh):
+    """Without a mesh None and True compile and False is eager; on a mesh
+    the same, but for a collective-holding step on gloo ranks on the card,
+    which None runs eagerly and True refuses
+    (tests/test_torch_compiled_mesh.py holds the whole table)."""
     assert graphs.resolve_jit(None) and graphs.resolve_jit(True)
     assert not graphs.resolve_jit(False)
-    assert not graphs.resolve_jit(None, mesh=object())
-    assert not graphs.resolve_jit(False, mesh=object())
-    with pytest.raises(NotImplementedError, match="C9"):
-        graphs.resolve_jit(True, mesh=object())
+    assert graphs.resolve_jit(None, mesh=gloo_mesh) and graphs.resolve_jit(True, gloo_mesh)
+    assert not graphs.resolve_jit(False, mesh=gloo_mesh)
+    assert not graphs.resolve_jit(None, mesh=gloo_mesh, collectives=True)
+    with pytest.raises(RuntimeError, match="'gloo'"):
+        graphs.resolve_jit(True, mesh=gloo_mesh, collectives=True)
 
 
-@pytest.mark.parametrize("entry", ["train_step", "gan_train_step", "convert_utterance_sp"])
-def test_jit_true_with_a_mesh_raises(entry):
-    """The compiled mesh steps are not ported (ROADMAP C9): asked for,
-    each entry point raises before it touches its arguments."""
-    mesh = object()
+@pytest.mark.parametrize("entry", ["train_step", "gan_train_step", "run_train"])
+def test_jit_true_with_a_mesh_raises(entry, gloo_mesh):
+    """jit=True on gloo ranks on the card, for a step whose body issues
+    collectives (the gradients' sum over 'streams'): each entry point
+    raises, naming the backend, before it touches its arguments.  (The
+    mesh steps without collectives, such as seqpar's passes, compile on
+    any backend.)"""
+    mesh = gloo_mesh
     calls = {
         "train_step": lambda: distill.train_step(None, None, None, cfg=None, mesh=mesh,
                                                  jit=True),
         "gan_train_step": lambda: gan.gan_train_step(None, None, None, None, None, cfg=None,
                                                      mesh=mesh, jit=True),
-        "convert_utterance_sp": lambda: convert_utterance_sp(None, None, None, None, 16000,
-                                                             device="cpu", mesh=mesh,
-                                                             jit=True),
+        "run_train": lambda: golden.run_train(None, None, None, "cpu", mesh=mesh, jit=True),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP C9"):
+    with pytest.raises(RuntimeError, match="'gloo' group on CUDA"):
         calls[entry]()
 
 

@@ -19,7 +19,11 @@ while the scheduler ticks leaving the other streams bitwise unchanged,
 `ModelHost()` on the card by default, and a warm serving tick whose only
 wait is on its output copy's event; multi-GPU: a world-size-1 NCCL group's
 1 x 1 mesh tick equal to the unsharded tick, and two gloo ranks sharing
-the card, each ticking half the streams, against one process.  They skip
+the card, each ticking half the streams, against one process; the
+compiled mesh steps: the tensor-parallel tick on a world-size-1 NCCL group
+(its all-reduces in the graph) equal to its eager twin, jit=True refused on
+a gloo group for that tick, and the NCCL spawner refusing more ranks than
+cards.  They skip
 where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
@@ -784,9 +788,10 @@ def test_nccl_mesh_tick_equals_unsharded(cuda_device, config):
 @pytest.mark.cuda
 @pytest.mark.parametrize("config", ["slots_f32", "slots_bf16"])
 def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, config):
-    """Two gloo ranks sharing the card, each ticking half the streams: the
-    gathered output equals the single-process tick at the kernel's
-    tolerance, and each rank launches its form once a tick."""
+    """Two gloo ranks sharing the card, each ticking half the streams
+    through its compiled tick (no collective in it): the gathered output
+    equals the single-process tick at the kernel's tolerance, and each
+    rank launches its form once a tick and once a warm-up tick."""
     from beatrice_vst_tpu_torch.parallel import checks, spawn_cpu_ranks
 
     kw = _mesh_tick_kwargs(config)
@@ -797,9 +802,74 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device, config):
     for res in results:
         got = res["tick"]
         assert got["rows"] == MESH_CAPACITY // 2
-        assert got["launches"] == {"float32": 0, "bfloat16": 0, form: MESH_TICKS}
+        assert got["compiled"] and got["warmup_ticks"] == 2
+        assert got["launches"] == {"float32": 0, "bfloat16": 0,
+                                   form: MESH_TICKS + got["warmup_ticks"]}
         np.testing.assert_allclose(got["out"], plain["out"], rtol=0,
                                    atol=BF16_TOL if form == "bfloat16" else TOL)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["slots_f32", "slots_bf16"])
+def test_nccl_compiled_tensor_parallel_tick_equals_eager(cuda_device, config):
+    """A world-size-1 NCCL group and a 1 x 1 mesh with the weights split
+    over 'model': the compiled tick holds the tensor-parallel all-reduces
+    in its graph and equals its eager twin bitwise."""
+    import torch.distributed as dist
+    from beatrice_vst_tpu_torch.parallel import checks, distributed_init
+
+    kw = dict(_mesh_tick_kwargs(config), mesh_shape=(1, 1), model_parallel=True,
+              device=cuda_device)
+    distributed_init(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        graph = checks.tick_case(**kw)
+        eager = checks.tick_case(jit=False, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert graph["compiled"] and not eager["compiled"]
+    assert graph["captured_collectives"] > 0 and eager["captured_collectives"] == 0
+    np.testing.assert_array_equal(graph["out"], eager["out"])
+
+
+@pytest.mark.cuda
+def test_jit_true_on_a_gloo_group_with_collectives_raises(cuda_device):
+    """A gloo group on the card: the tensor-parallel tick asked for
+    compiled raises, naming the backend; with jit None it runs eagerly."""
+    import torch.distributed as dist
+    from beatrice_vst_tpu_torch.parallel import checks, distributed_init
+
+    kw = dict(_mesh_tick_kwargs("slots_f32"), mesh_shape=(1, 1), model_parallel=True,
+              device=cuda_device)
+    distributed_init(f"tcp://127.0.0.1:{_free_port()}", 1, 0, backend="gloo")
+    try:
+        with pytest.raises(RuntimeError, match="'gloo' group on CUDA"):
+            checks.tick_case(jit=True, **kw)
+        assert not checks.tick_case(**kw)["compiled"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_spawner_with_more_ranks_than_cards_raises(cuda_device):
+    """NCCL ranks are one a card: more ranks than cards raise, in the
+    spawner and in the dry run, which falls back to nothing unless asked
+    for gloo ranks sharing card 0."""
+    from beatrice_vst_tpu_torch.parallel import spawn_nccl_ranks
+    from beatrice_vst_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} NCCL ranks need {n} cards"):
+        spawn_nccl_ranks(n, print)
+    with pytest.raises(RuntimeError, match="NCCL ranks need"):
+        dryrun_multichip(n, "cuda")
 
 
 # ---- the compiled offline, seqpar, parity and training steps ----

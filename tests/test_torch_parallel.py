@@ -42,6 +42,15 @@ Gates:
     unsharded seqpar at 1e-6, where (s-1)*B divides and where it does not;
   * the dry run on 4 ranks; the bring-up over a tcp:// rendezvous.
 
+Every mesh step above runs compiled (`jit=None`: on the CPU a compiled
+step runs op by op over its static tensors), and each one -- the two
+ticks, the data- and tensor-parallel distillation and GAN steps, seqpar at
+3 and 4 segments -- also runs as its eager twin (`jit=False`) in the same
+spawn: compiled equals eager bitwise (outputs, states, metrics, gradients,
+parameters).  The compiled sharded tick is held to the JAX package's
+jitted sharded tick at rtol 5e-3, atol 1e-5, and the compiled steps' keys
+differ between meshes and between ranks (`graphs.mesh_key`).
+
 Run alone: `python -m pytest tests/test_torch_parallel.py -q -p no:cacheprovider`
 (about a minute on two cores).
 """
@@ -79,6 +88,7 @@ from beatrice_vst_tpu_torch.parallel import (MODEL_PARALLEL_RULES, P, checks, pa
                                              spawn_cpu_ranks, state_sharding)
 from beatrice_vst_tpu_torch.parallel.dryrun import dryrun_rank
 from beatrice_vst_tpu_torch.runtime.engine import EngineConfig, init_engine_state
+from beatrice_vst_tpu_torch.runtime.graphs import leaves
 from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
 
 torch.set_num_threads(1)
@@ -88,6 +98,9 @@ CAP = 8
 GRAD_RTOL = 5e-5
 PARAM_ATOL = 2e-5
 STEP_ATOL = 1e-6
+# the compiled mesh steps run beside their eager twins: {case: ranks}
+EAGER_TWINS = {"tick": 2, "prod": 2, "distill": 2, "gan": 2, "seqpar_3": 2, "seqpar_4": 2,
+               "distill_tp": 4, "gan_tp": 4}
 
 
 def _np(tree):
@@ -156,6 +169,11 @@ def _cases(inp):
             ("gan_tp", checks.gan_case, dict(gan, mesh_shape=(2, 2), model_parallel=True)),
             ("dryrun", dryrun_rank, {"rank": None, "n_devices": 4}),
             ("bringup", checks.bringup_case, {"mesh_shape": (2, 2)})]
+    # the eager twins (jit=False) of the compiled mesh steps above
+    two += [(f"{name}_eager", fn, dict(kw, jit=False)) for name, fn, kw in two
+            if name in EAGER_TWINS]
+    four += [(f"{name}_eager", fn, dict(kw, jit=False)) for name, fn, kw in four
+             if name in EAGER_TWINS]
     plain = [("tick", checks.tick_case, tick), ("prod", checks.tick_case, prod),
              ("distill", checks.distill_case, distill), ("gan", checks.gan_case, gan),
              ("stages", checks.stages_case, stages)]
@@ -422,10 +440,10 @@ def test_tensor_parallel_gan_step(runs):
 
 @pytest.mark.parametrize("n_segments", [3, 4])
 def test_seqpar_on_mesh(runs, n_segments):
-    ref = runs["ref"][f"seqpar_{n_segments}"]
+    ref = runs["ref"][f"seqpar_{n_segments}"]["out"]
     assert np.abs(ref).max() > 0.05
     for res in runs[2]:
-        got = res[f"seqpar_{n_segments}"]
+        got = res[f"seqpar_{n_segments}"]["out"]
         assert got.shape == ref.shape
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
         np.testing.assert_allclose(got, runs["ref"]["sequential"], rtol=0, atol=1e-3)
@@ -456,3 +474,57 @@ def test_sharded_weight_refused_by_the_fused_head(runs):
         got = res["refusal"]
         assert got["kept_whole"] and got["pitch_emb_split"]
         assert got["refused"] is not None and "split over 'model'" in got["refused"]
+
+
+# ---- 12-14: the compiled mesh steps ----
+
+def _assert_same(got, want, path=""):
+    """Bitwise equal trees of dicts, numpy arrays and numbers."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_same(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want, (path, got, want)
+
+
+# what a case computes (its timings and capture figures left out)
+RESULTS = ("out", "state", "rows", "launches", "metrics", "grads", "params", "g_grads",
+           "d_grads", "g", "d")
+
+
+@pytest.mark.parametrize("case", sorted(EAGER_TWINS))
+def test_compiled_mesh_step_equals_eager(runs, case):
+    """Each compiled mesh step against its eager twin on every rank:
+    bitwise equal outputs, states, metrics, gradients and parameters."""
+    for res in runs[EAGER_TWINS[case]]:
+        got, want = res[case], res[f"{case}_eager"]
+        assert got["compiled"] and not want["compiled"]
+        keys = [k for k in RESULTS if k in want]
+        assert keys
+        _assert_same({k: got[k] for k in keys}, {k: want[k] for k in keys}, case)
+        tensors = [x for x in leaves({k: want[k] for k in keys}) if isinstance(x, np.ndarray)]
+        assert tensors and max(float(np.abs(x).max()) for x in tensors) > 0
+
+
+def test_compiled_sharded_tick_matches_jax_jitted_sharded_tick(runs):
+    """The compiled stream-sharded tick (V20A2, capacity 8, 2 ranks)
+    against the JAX package's `jax.jit(engine_tick)` over the sharded
+    state, at tests/test_sharding.py's rtol 5e-3, atol 1e-5."""
+    want = runs["jax"]["tick"]
+    for res in runs[2]:
+        assert res["tick"]["compiled"] and res["tick"]["warmup_ticks"] == 0
+        np.testing.assert_allclose(res["tick"]["out"][0], want, rtol=5e-3, atol=1e-5)
+
+
+def test_mesh_keys_differ_between_meshes_and_ranks(runs):
+    """`graphs.mesh_key`: two meshes of the same ranks (2 x 1 and 1 x 2;
+    2 x 2 and 4 x 1), and the ranks of one mesh, key their compiled steps
+    apart; the backend is in the key."""
+    for n in (2, 4):
+        keys = [tuple(r["bringup"]["mesh_keys"]) for r in runs[n]]
+        for mesh, other in keys:
+            assert mesh != other and mesh[0] == other[0] == "gloo"
+        assert len({k[0] for k in keys}) == len({k[1] for k in keys}) == n
