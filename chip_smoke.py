@@ -148,7 +148,29 @@ Phases, each printing one line with its seconds:
                 the swap; the f32 form's launches equal to both engines'
                 ticks, no recovery, no last_error, the scheduler alive
                 before stop().
- 14. train_golden -- one distillation step and one GAN step (and each
+ 14. soak   -- the long-stream soak (beatrice_vst_tpu_torch/scripts/
+                long_stream_soak.py) for one minute a leg, with the launch
+                counts set to 0 before each: leg a (2 streams, the compiled
+                T = 1 engine against the compiled T = 600 engine, window
+                by window, and stream 0 against the float64 oracle over the
+                minute) and leg b (256 streams, slots f32, T = 1 against
+                T = 100, no oracle).
+                Raises on any failed gate (state bounded; stream vs chunk
+                within the drift budget and the 1e-2 spectral gate; oracle
+                within 2e-3; a pitch or VQ flip between the two paths
+                within 1e-5 is a tie and holds its stream, as the soak
+                does) and unless the f32 form launched once a T = 1 tick
+                and warm-up tick (a flip's replay included) and never in
+                a chunk.  Reported: each leg's per-minute numbers, its
+                flips and ticks per second of each path.
+ 15. latency -- the client latency probe (beatrice_vst_tpu_torch/scripts/
+                latency_probe.py): 4 sessions on a ModelHost of capacity
+                8, 10 s at 10 ms pacing; raises if its burst detection
+                ratio is at most 0.9 or the f32 form's launches differ from
+                the engine's ticks and warm-up ticks.  Reported: the burst
+                latency's p50 / p90 / p99, the pacing, the scheduler's
+                ticks a second, whether the pace was kept.
+ 16. train_golden -- one distillation step and one GAN step (and each
                 one's second step, after the update) on klatt8 at full
                 width, f32, TF32 off, on the batch stored in
                 tests/data/torch_train_golden.npz with the critics of
@@ -158,7 +180,7 @@ Phases, each printing one line with its seconds:
                 exact arithmetic, below 1e-6; the final conv's and the
                 PCD's first bias at 3e-2); the fused upsampler never
                 launched.
- 15. train   -- `train` and `train_gan` on klatt8 at the CLI's defaults
+ 17. train   -- `train` and `train_gan` on klatt8 at the CLI's defaults
                 (batch 8, 32 frames), 30 steps each on one batch from
                 make_teacher_batcher: the loss finite and lower at the end
                 than at step 0; steps and audio seconds per second, peak
@@ -167,18 +189,18 @@ Phases, each printing one line with its seconds:
                 run's steps 15-29 within 1e-6 (deterministic algorithms on,
                 cuBLAS with a fixed workspace); the fused upsampler never
                 launched.
- 16. train_data -- a small parallel corpus from the port's synthesis.py
+ 18. train_data -- a small parallel corpus from the port's synthesis.py
                 (as scripts/make_corpus.py lays it out), PairDataset and one
                 batch of make_pair_batcher, then `python -m
                 beatrice_vst_tpu_torch.cli train --data` for 10 steps in a
                 subprocess: exit 0 and a weights.npz with klatt8's tree.
- 17. seqpar  -- runtime/seqpar.py:convert_utterance_sp on klatt8: the golden
+ 19. seqpar  -- runtime/seqpar.py:convert_utterance_sp on klatt8: the golden
                 signal at 4 segments against tests/data/
                 torch_seqpar_golden.npz (the JAX package's) and a 20 s
                 signal at 4 and 8 segments against the port's
                 convert_utterance, each at atol 1e-3; audio seconds per
                 second of each, on the second of two runs.
- 18. offline_graph -- the compiled offline steps (runtime/graphs.py: CUDA
+ 20. offline_graph -- the compiled offline steps (runtime/graphs.py: CUDA
                 graphs of the chunk step, the whole-utterance step and the
                 resamplers, convert_utterance's default) against eager
                 (jit=False) on klatt8: 20 s at 44.1 kHz chunked and 1.5 s
@@ -189,9 +211,9 @@ Phases, each printing one line with its seconds:
                 capture ms, peak MiB of each and the MiB the compiled steps
                 keep; then klatt8 and klatt8_r6 (the same shapes), each
                 compiled conversion equal to its own eager one.
- 19. seqpar_graph -- convert_utterance_sp at 4 segments on 20 s, compiled
+ 21. seqpar_graph -- convert_utterance_sp at 4 segments on 20 s, compiled
                 (both passes and the resamplers) against eager, as above.
- 20. parity_graph -- the kernel inside a compiled path: run_parity on klatt8 at
+ 22. parity_graph -- the kernel inside a compiled path: run_parity on klatt8 at
                 T = 25, capacity 256, with the compiled streaming half (one
                 CUDA graph over the donated tick, replayed once a frame)
                 against the eager one, in the order graph, eager, eager,
@@ -201,7 +223,7 @@ Phases, each printing one line with its seconds:
                 per frame by the replays, twice in the capture (the
                 warm-up ticks), never in the chunk tick; span per 10 ms of
                 audio of each streaming half, the capture's host ms.
- 21. train_graph -- `train` and `train_gan` at batch 8 x 32 frames, 8
+ 23. train_graph -- `train` and `train_gan` at batch 8 x 32 frames, 8
                 steps each over the same batches of the compiled teacher,
                 compiled against eager under deterministic algorithms
                 (every loss within 1e-4 relative), steps per second of each
@@ -210,12 +232,12 @@ Phases, each printing one line with its seconds:
                 resumed repeats the straight compiled run bitwise; then
                 golden.run_train through the compiled steps against the
                 train golden file (golden.train_gate).
- 22. feature_distill_graph -- module_step of each module (klatt8 teacher,
+ 24. feature_distill_graph -- module_step of each module (klatt8 teacher,
                 a chain.init student, batch 8 x 32 frames), compiled
                 against eager over 4 steps (losses within 1e-4 relative),
                 step ms of each; end_to_end_error and end_to_end_error_soft
                 compiled against eager.
- 23. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
+ 25. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
                 (parallel/mesh.py:spawn_cpu_ranks) whose ranks share the one
                 card and each compute on it, every case in one spawn
                 (parallel/checks.py), then:
@@ -270,14 +292,15 @@ Phases, each printing one line with its seconds:
                 of a compiled tick's capture.  Two ranks on one card
                 measure processes overlapping on one device, not
                 multi-GPU scaling.
- 24. profile -- only with `--profile DIR`: where the engine's tick time
+ 26. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line (each form's launches summed over every path that
 drove it, a graph's replays included: the graph phases (eager and graph
 engines), the engine configurations, the morph engines, the streaming
 halves of parity, the older versions' engines, the in-process serving
-paths serve_golden, serve_pipeline and serve_ws, the compiled streaming
+paths serve_golden, serve_pipeline and serve_ws, the soak's T = 1
+engines (soak_a, soak_b) and the latency probe's, the compiled streaming
 halves of parity_graph (their replays and their captures' warm-up
 ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
 mesh_graph (replays and warm-up ticks), mesh_nccl and mesh_nccl_graph,
@@ -1741,6 +1764,68 @@ def serve_ws_phase(device, card):
     return counts["float32"]
 
 
+SOAK_FRAMES = 6000  # one minute a leg
+SOAK_CHUNK = 600  # leg a's frames a tick of the chunk path, the JAX soak's default
+LATENCY_SESSIONS = 4
+LATENCY_CAPACITY = 8
+LATENCY_SECONDS = 10.0
+LATENCY_PACE_MS = 10.0  # the product cadence
+LATENCY_MIN_DETECTION = 0.9
+
+
+def soak_phase(device, card, by_path):
+    """The long-stream soak's two legs for SOAK_FRAMES frames each (leg a
+    with the float64 oracle over all of them), each leg's launches
+    counted apart: every gate must hold, and the f32 form must have
+    launched once a T = 1 tick and warm-up tick (a chunk engine runs
+    the stage loop), a flip's replay included.  A flip that is a tie is
+    held, as the soak holds it; any other fails its gate.  Adds each leg's
+    launches to by_path."""
+    from beatrice_vst_tpu_torch.models.io import load_model_dir
+    from beatrice_vst_tpu_torch.runtime.engine import GRAPH_WARMUP_TICKS
+    from beatrice_vst_tpu_torch.scripts import long_stream_soak as soak
+
+    _, cfg, params, bank = load_model_dir(MODEL_DIR)
+    for leg, streams, chunk, oracle_frames in (("a", 2, SOAK_CHUNK, SOAK_FRAMES),
+                                               ("b", soak.STREAMS_B, soak.CHUNK_FRAMES_B, 0)):
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        lines = []
+        rep = soak.run_leg(params, bank, cfg, streams, SOAK_FRAMES, chunk, oracle_frames,
+                           device=device, log=lines.append)
+        counts = launch_counts()
+        # and the T = 1 ticks of the flips' replays (`locate_flips`)
+        want = {**dict.fromkeys(counts, 0), "float32": SOAK_FRAMES + GRAPH_WARMUP_TICKS
+                + rep["flip_replay_t1_ticks"]}
+        if not all(rep["gates"].values()) or counts != want:
+            raise AssertionError(f"soak leg {leg}: gates {rep['gates']}, launches {counts} "
+                                 f"(expected {want}); {lines}")
+        by_path["float32"][f"soak_{leg}"] = counts["float32"]
+        log("soak", t0, leg=leg, launches=counts, **rep, nvidia_smi=card)
+
+
+def latency_phase(device, card, by_path):
+    """The latency probe at the product cadence: raises unless it detects
+    more than LATENCY_MIN_DETECTION of its bursts and the f32 form
+    launched once a tick and warm-up tick of its engine.  Adds the
+    launches to by_path."""
+    from beatrice_vst_tpu_torch.scripts import latency_probe as probe
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rep = probe.run_probe(MODEL_DIR, LATENCY_SESSIONS, LATENCY_SECONDS, LATENCY_CAPACITY,
+                          pace_ms=LATENCY_PACE_MS, device=device, log=lambda s: None)
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0),
+            "float32": rep["engine_ticks"] + rep["graph_warmup_ticks"]}
+    if not rep["burst_detection_ratio"] > LATENCY_MIN_DETECTION or counts != want:
+        raise AssertionError(f"latency: detection {rep['burst_detection_ratio']}, launches "
+                             f"{counts} (expected {want}): {rep}")
+    by_path["float32"]["latency"] = counts["float32"]
+    log("latency", t0, launches=counts, probe_seconds=rep["seconds"],
+        **{k: v for k, v in rep.items() if k not in ("note", "seconds")}, nvidia_smi=card)
+
+
 def profile_phase(device, out_dir, config, ticks=20):
     """Where the engine's tick time goes in one configuration: `ticks`
     ticks at capacity 256 under torch.profiler after warm-up.  Prints
@@ -3176,6 +3261,8 @@ def main() -> int:
     for dtype in (None, "bfloat16"):
         serve_tcp_phase(device, card, dtype)
     by_path["float32"]["serve_ws"] = serve_ws_phase(device, card)
+    soak_phase(device, card, by_path)
+    latency_phase(device, card, by_path)
     train_golden_phase(device, card)
     train_phase(device, card)
     train_data_phase(device, card)
