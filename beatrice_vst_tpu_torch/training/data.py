@@ -117,7 +117,10 @@ def make_pair_batcher(dataset: PairDataset, cfg, bank, *, batch: int, frames: in
     register_boost: the sampling weight of a pair ramps from 1 to
     register_boost as its mean voiced F0 crosses 240 -> 320 Hz (1.0:
     uniform).  prefetch > 0 makes batches on a background thread into a
-    queue of that depth."""
+    queue of that depth.  A batch made while the queue stays full waits
+    for its place, so the sequence does not depend on the consumer's pace;
+    the JAX package's worker drops such a batch after 1 s, and its batches
+    after a step slower than that (a compile) depend on the timing."""
     from ..runtime.offline import ConversionSettings, build_cond
 
     dev = resolve_device(device)
@@ -177,10 +180,13 @@ def make_pair_batcher(dataset: PairDataset, cfg, bank, *, batch: int, frames: in
 
     def worker():
         while not stop.is_set():
-            try:
-                q.put(make_batch(), timeout=1.0)
-            except _queue.Full:
-                continue
+            made = make_batch()
+            while not stop.is_set():
+                try:
+                    q.put(made, timeout=1.0)
+                    break
+                except _queue.Full:
+                    continue
 
     th = threading.Thread(target=worker, daemon=True)
     th.start()

@@ -100,6 +100,18 @@ def f0_track(x: np.ndarray, sr: int, fmin: float = 60.0, fmax: float = 460.0,
 
     The search band covers the F0-augmented corpus registers
     (training/synthesis.py f0_scale_range: ~62-400 Hz instantaneous)."""
+    parts = f0_track_parts(x, sr, fmin, fmax, clarity)
+    return parts["f0"], parts["voiced"]
+
+
+def f0_track_parts(x: np.ndarray, sr: int, fmin: float = 60.0, fmax: float = 460.0,
+                   clarity: float = 0.5) -> dict:
+    """`f0_track` with its intermediates per frame: the normalized
+    autocorrelation over the lag band from `lo` (`band`), the first argmax
+    (`lag0`) and its value (`peak`), the energy (`e_db`) against its gate
+    (`e_thr`), `voiced`, the band's local maxima (`local`), the median
+    voiced lag (`med_lag`, None when nothing is voiced), the re-locked
+    `lag` and the filtered `f0`, beside the `clarity` threshold."""
     seg = _frames(x, sr, 0.040, 0.010)
     seg = seg - seg.mean(-1, keepdims=True)
     n = seg.shape[1]
@@ -109,12 +121,16 @@ def f0_track(x: np.ndarray, sr: int, fmin: float = 60.0, fmax: float = 460.0,
     acn = ac / ac0
     lo = int(sr / fmax)
     hi = min(int(sr / fmin), n - 1)
-    cand = acn[:, lo:hi]
-    lag = lo + np.argmax(cand, axis=-1)
-    peak = acn[np.arange(len(lag)), lag]
+    band = acn[:, lo:hi]
+    lag0 = lo + np.argmax(band, axis=-1)
+    peak = acn[np.arange(len(lag0)), lag0]
     energy = ac[:, 0] / n
     e_db = 10 * np.log10(energy + EPS)
-    voiced = (peak > clarity) & (e_db > e_db.max() - 35.0)
+    e_thr = e_db.max() - 35.0
+    voiced = (peak > clarity) & (e_db > e_thr)
+    prev = np.pad(band, ((0, 0), (1, 0)), constant_values=-2)[:, :-1]
+    nxt = np.pad(band, ((0, 0), (0, 1)), constant_values=-2)[:, 1:]
+    local = (band >= prev) & (band >= nxt)
     # Peak disambiguation (r6): the corpus shares one F0 contour across
     # speakers, so do-nothing pairs have IDENTICAL true F0 -- yet the
     # plain argmax tracker scored them at ~245 cents RMSE: the entire
@@ -130,13 +146,10 @@ def f0_track(x: np.ndarray, sr: int, fmin: float = 60.0, fmax: float = 460.0,
     # corpus vs plan F0: 0.6 -> worst 380 / mean 67 cents, 0.5 -> 251/57,
     # 0.45 -> 252/52 (from 1340/245 unfixed); 0.5 keeps margin against
     # weak noise bumps near the median.
-    lag = lag.astype(np.int64)
+    lag = lag0.astype(np.int64)
+    med_lag = None
     if voiced.any():
-        band = acn[:, lo:hi]
-        prev = np.pad(band, ((0, 0), (1, 0)), constant_values=-2)[:, :-1]
-        nxt = np.pad(band, ((0, 0), (0, 1)), constant_values=-2)[:, 1:]
-        strong = ((band >= prev) & (band >= nxt)
-                  & (band >= 0.5 * peak[:, None]))
+        strong = local & (band >= 0.5 * peak[:, None])
         strong[np.arange(len(lag)), lag - lo] = True
         med_lag = float(np.median(lag[voiced]))
         dist = np.abs(np.log2(np.arange(lo, hi)[None, :] / med_lag))
@@ -147,7 +160,9 @@ def f0_track(x: np.ndarray, sr: int, fmin: float = 60.0, fmax: float = 460.0,
     from scipy.signal import medfilt
 
     f0 = medfilt(f0, 5)
-    return f0, voiced
+    return {"band": band, "lo": lo, "lag0": lag0, "peak": peak, "e_db": e_db,
+            "e_thr": e_thr, "clarity": clarity, "voiced": voiced, "local": local,
+            "med_lag": med_lag, "lag": lag, "f0": f0}
 
 
 def f0_rmse_cents(x: np.ndarray, y: np.ndarray, sr: int):

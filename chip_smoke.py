@@ -194,6 +194,30 @@ Phases, each printing one line with its seconds:
                 batch of make_pair_batcher, then `python -m
                 beatrice_vst_tpu_torch.cli train --data` for 10 steps in a
                 subprocess: exit 0 and a weights.npz with klatt8's tree.
+ 18a. quality -- the model-quality loop's evaluation
+                (beatrice_vst_tpu_torch/scripts/quality_eval.py, ood_eval.py)
+                on klatt8: the held-out utterances 45 and 46 rendered as the
+                seed-0 corpus holds them (make_corpus.write_renditions),
+                their 12 pairs of tests/data/torch_quality_golden.json
+                converted (the compiled whole-utterance steps) with and
+                without soft pitch, and the first noise (20 dB) and register
+                (330 Hz) rows; each row held to the golden file (the JAX
+                package's on the CPU): the model-free rows exactly, the
+                converted rows' MCD and LSD within 0.05 dB, voicing within
+                0.02, F0 RMSE within 5 cents unless the tracker's decisions
+                differ only at near-ties (quality_eval.locate_ties against
+                the port's CPU conversion; reported), the pairs worse than
+                do-nothing equal in count; neither form launched.
+                Reported: the worst deviation per metric, the ties, the
+                captures and capture ms, seconds.
+ 18b. train_real -- `python -m beatrice_vst_tpu_torch.scripts.
+                train_real_model --resume` on a copy of klatt8 with the r6
+                recipe's flags (f0 weight 4, register boost 3, periodicity
+                2, soft pitch, cosine LR) at batch 16 x 64 frames, 20
+                distillation and 10 GAN steps on a 4-utterance corpus of
+                the port's make_corpus, in a subprocess: exit 0, finite
+                losses, the JAX report's keys, neither form launched.
+                Reported: each phase's steps/s, peak MiB and captures.
  19. seqpar  -- runtime/seqpar.py:convert_utterance_sp on klatt8: the golden
                 signal at 4 segments against tests/data/
                 torch_seqpar_golden.npz (the JAX package's) and a 20 s
@@ -305,8 +329,8 @@ halves of parity_graph (their replays and their captures' warm-up
 ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
 mesh_graph (replays and warm-up ticks), mesh_nccl and mesh_nccl_graph,
 summed over their ranks; the phases from train_golden to
-seqpar_graph and from train_graph to feature_distill_graph launch
-neither form), the card line, and the last line
+seqpar_graph (quality and train_real included) and from train_graph to
+feature_distill_graph launch neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -2082,6 +2106,122 @@ def train_data_phase(device, card):
         cli_last_line=proc.stdout.strip().splitlines()[-1], nvidia_smi=card)
 
 
+QUALITY_GOLDEN = os.path.join(HERE, "tests", "data", "torch_quality_golden.json")
+QUALITY_UTTS = (45, 46)  # the first two held-out utterances: 12 of the golden file's 30 pairs
+TRAIN_REAL_STEPS = 20
+TRAIN_REAL_GAN_STEPS = 10
+TRAIN_REAL_TIMEOUT_S = 600
+R6_FLAGS = ("--f0-weight", "4", "--register-boost", "3", "--periodicity-weight", "2")
+
+
+def quality_phase(device, card):
+    """quality_eval's pairs of the held-out utterances 45 and 46 on klatt8
+    (from their renditions, as the seed-0 corpus holds them), with and
+    without soft pitch, and ood_eval's first noise (20 dB) and register
+    (330 Hz) rows, each held to tests/data/torch_quality_golden.json (the
+    JAX package's rows on the CPU): the model-free rows exactly, each
+    converted row's MCD and LSD within 0.05 dB, voicing within 0.02 and
+    F0 RMSE within 5 cents unless the tracker's decisions differ only at
+    near-ties (located against the port's conversion on the CPU, and
+    reported); the count of pairs worse than do-nothing equal; the
+    kernel's forms never launched (the conversions run the stage loop)."""
+    import tempfile
+
+    from beatrice_vst_tpu_torch.scripts import make_corpus
+    from beatrice_vst_tpu_torch.scripts import ood_eval as O
+    from beatrice_vst_tpu_torch.scripts import quality_eval as Q
+
+    t0 = time.perf_counter()
+    golden = Q.load_golden(QUALITY_GOLDEN)
+    model = Q.load_model(MODEL_DIR, device)
+    with tempfile.TemporaryDirectory() as root:
+        make_corpus.write_renditions(root, QUALITY_UTTS)
+        corpus = Q.load_corpus(root)
+        corpus_s = time.perf_counter() - t0
+        pairs = [(r["utt"], r["src"], r["tgt"]) for r in golden["quality"]["pairs"]
+                 if r["utt"] in QUALITY_UTTS]
+        watch = Q.CaptureWatch()
+        reset_launch_counts()
+        t = time.perf_counter()
+        rows = [Q.score_pair(model, corpus, j, s, t_, soft_ab=True) for j, s, t_ in pairs]
+        # each condition's first case, as ood_eval scores it
+        conditions = O.flagship_conditions(corpus)
+        ood = {name: O.aggregate([O.score_case(model, next(conditions[name]),
+                                               corpus.sample_rate)])
+               for name in ("noise_snr_20db", "unseen_f0_high_330hz")}
+        scored_s = time.perf_counter() - t
+        counts = no_upsampler_launches("quality")
+        captures = watch.stats()
+        res = Q.golden_failures(model, corpus, rows, golden, subset=True)
+        res_ood = O.golden_failures(model, None, corpus, ood, golden, subset=True)
+    failures = res["failures"] + res_ood["failures"]
+    ties = res["ties"] + res_ood["ties"]
+    if failures:
+        raise AssertionError(f"quality: {len(failures)} rows off the golden file: "
+                             f"{failures[:8]}; ties {ties}")
+    want = {Q.row_key(r): r for r in golden["quality"]["pairs"]}
+    worst = {key: {m: max(abs(r[key][m] - want[Q.row_key(r)][key][m]) for r in rows
+                          if r[key][m] is not None)
+                   for m in Q.METRICS} for key in ("converted", "converted_soft")}
+    log("quality", t0, model="klatt8", utterances=list(QUALITY_UTTS), pairs=len(rows),
+        ood_rows=sorted(ood), checked=res["checked"] + res_ood["checked"], ties=ties,
+        worse_than_do_nothing=res["worse_than_do_nothing"], worst_deviation=worst,
+        summary=Q.summarize(rows), corpus_seconds=corpus_s, scored_seconds=scored_s,
+        conversions=2 * len(rows) + len(ood), compiled_steps=captures,
+        kernel_launches=counts, nvidia_smi=card)
+
+
+def train_real_phase(device, card):
+    """`python -m beatrice_vst_tpu_torch.scripts.train_real_model` with the
+    r6 recipe's flags at batch 16 x 64 frames, TRAIN_REAL_STEPS distillation
+    and TRAIN_REAL_GAN_STEPS GAN steps, resuming a copy of klatt8 on a small
+    corpus (4 utterances by the 8 speakers, 48 pairs) from the port's
+    make_corpus: exit 0, finite losses, the JAX report's keys, the kernel's
+    forms never launched in the script's process."""
+    import shutil
+    import tempfile
+
+    from beatrice_vst_tpu_torch.scripts import make_corpus
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        manifest = make_corpus.make_corpus(corpus, utts=4, eval_utts=1, log=lambda _: None)
+        model = os.path.join(root, "model")
+        shutil.copytree(MODEL_DIR, model)
+        report = os.path.join(root, "report.json")
+        cmd = [sys.executable, "-m", "beatrice_vst_tpu_torch.scripts.train_real_model",
+               "--corpus", corpus, "--out", model, "--resume", "--steps", str(TRAIN_REAL_STEPS),
+               "--gan-steps", str(TRAIN_REAL_GAN_STEPS), *R6_FLAGS, "--report", report,
+               "--ckpt-dir", os.path.join(root, "ckpt")]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                              timeout=TRAIN_REAL_TIMEOUT_S)
+        script_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"train_real_model exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(report) as f:
+            got = json.load(f)
+    with open(os.path.join(HERE, "docs", "TRAIN_R6_REPORT.json")) as f:
+        keys = set(json.load(f)) - {"bursts"}
+    losses = [v for _, v in got["distill"]["loss_curve"] + got["gan"]["g_loss_curve"]]
+    if not keys <= set(got) or not np.isfinite(losses).all() or \
+            (got["distill"]["steps_executed"], got["gan"]["steps_executed"]) != \
+            (TRAIN_REAL_STEPS, TRAIN_REAL_GAN_STEPS) or any(got["upsampler_kernel_launches"].values()):
+        raise AssertionError(f"train_real: report {sorted(got)}, losses {losses}, launches "
+                             f"{got['upsampler_kernel_launches']}")
+    log("train_real", t0, batch=got["batch"], frames=got["frames_per_example"],
+        pairs=manifest["n_pairs"], steps=[TRAIN_REAL_STEPS, TRAIN_REAL_GAN_STEPS],
+        loss_curve=got["distill"]["loss_curve"], g_loss_curve=got["gan"]["g_loss_curve"],
+        distill={k: got["distill"].get(k) for k in ("wall_s", "steps_per_s", "peak_mib",
+                                                    "compiled_steps")},
+        gan={k: got["gan"].get(k) for k in ("wall_s", "steps_per_s", "peak_mib",
+                                            "compiled_steps")},
+        script_seconds=script_s, kernel_launches=got["upsampler_kernel_launches"],
+        nvidia_smi=card)
+
+
 def seqpar_phase(device, card):
     """convert_utterance_sp on klatt8: the golden signal at 4 segments
     against tests/data/torch_seqpar_golden.npz (the JAX package's), and a
@@ -3266,6 +3406,8 @@ def main() -> int:
     train_golden_phase(device, card)
     train_phase(device, card)
     train_data_phase(device, card)
+    quality_phase(device, card)
+    train_real_phase(device, card)
     seqpar_phase(device, card)
     offline_graph_phase(device, card)
     seqpar_graph_phase(device, card)
