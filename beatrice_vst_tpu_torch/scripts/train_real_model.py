@@ -115,10 +115,14 @@ class PhaseClock:
         self.watch = Q.CaptureWatch()
         self.t0 = time.time()
 
+    def mark(self, step: int) -> None:
+        """A logged step, whose loss has just been read."""
+        self.marks.append((step, time.time()))
+
     def log_fn(self, msg):
         m = re.match(r"step (\d+):", msg)
         if m:
-            self.marks.append((int(m.group(1)), time.time()))
+            self.mark(int(m.group(1)))
         self.log(msg)
 
     def stats(self) -> dict:

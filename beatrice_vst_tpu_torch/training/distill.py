@@ -212,6 +212,22 @@ def warmup_cosine(lr: float, total_steps: int, warmup: int = 500):
     return schedule
 
 
+def cosine_decay(lr: float, total_steps: int):
+    """optax.cosine_decay_schedule(lr, total_steps) (alpha 0) as a function
+    of the update count, evaluated, as optax does, at the count before the
+    update (step 0 runs at lr) and in float32, as optax evaluates it."""
+    if total_steps <= 0:
+        raise ValueError(f"the cosine decay needs total_steps > 0, got {total_steps}")
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(min(count, total_steps))
+        cos = np.cos(f32(math.pi) * c / f32(total_steps), dtype=f32)
+        return float(f32(lr) * (f32(0.5) * (f32(1.0) + cos)))
+
+    return schedule
+
+
 class Optimizer:
     """optax's `adamw` (after `clip_by_global_norm` with clip_norm) over
     the leaves of a params tree.

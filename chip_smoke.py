@@ -261,6 +261,14 @@ Phases, each printing one line with its seconds:
                 against eager over 4 steps (losses within 1e-4 relative),
                 step ms of each; end_to_end_error and end_to_end_error_soft
                 compiled against eager.
+ 24b. distill_parity -- `python -m beatrice_vst_tpu_torch.scripts.
+                distill_parity` with the klatt8 teacher at batch 16 x 32
+                frames, 20 steps a module (40 for pitch) and 10 polish
+                steps on a 4-utterance corpus of the port's make_corpus, in
+                a subprocess: exit 0, the JAX report's keys, every logged
+                loss and diagnostic finite, neither form launched.
+                Reported: each phase's steps/s, captures, capture ms and
+                peak MiB, the final wav_l1, wav_max and qp_match, seconds.
  25. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
                 (parallel/mesh.py:spawn_cpu_ranks) whose ranks share the one
                 card and each compute on it, every case in one spawn
@@ -330,7 +338,7 @@ ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
 mesh_graph (replays and warm-up ticks), mesh_nccl and mesh_nccl_graph,
 summed over their ranks; the phases from train_golden to
 seqpar_graph (quality and train_real included) and from train_graph to
-feature_distill_graph launch neither form), the card line, and the last line
+distill_parity launch neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -2650,6 +2658,63 @@ def feature_distill_graph_phase(device, card):
         nvidia_smi=card)
 
 
+DISTILL_PARITY_STEPS = 20  # each module's steps (the pitch module's twice)
+DISTILL_PARITY_E2E_STEPS = 10
+DISTILL_PARITY_TIMEOUT_S = 300
+
+
+def distill_parity_phase(device, card):
+    """`python -m beatrice_vst_tpu_torch.scripts.distill_parity` with the
+    klatt8 teacher at its default batch (16 x 32 frames),
+    DISTILL_PARITY_STEPS steps a module and DISTILL_PARITY_E2E_STEPS polish
+    steps, on a small corpus (4 utterances by 4 speakers) from the port's
+    make_corpus, in a subprocess: exit 0, every key of the JAX report
+    (docs/DISTILL_PARITY_REPORT.json), every logged loss and diagnostic
+    finite, the kernel's forms never launched in the script's process."""
+    import tempfile
+
+    from beatrice_vst_tpu_torch.scripts import make_corpus
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        make_corpus.make_corpus(corpus, utts=4, speakers=4, eval_utts=1, log=lambda _: None)
+        report = os.path.join(root, "report.json")
+        cmd = [sys.executable, "-m", "beatrice_vst_tpu_torch.scripts.distill_parity",
+               "--corpus", corpus, "--teacher", MODEL_DIR,
+               "--steps-per-module", str(DISTILL_PARITY_STEPS),
+               "--e2e-steps", str(DISTILL_PARITY_E2E_STEPS), "--report", report]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                              timeout=DISTILL_PARITY_TIMEOUT_S)
+        script_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"distill_parity exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(report) as f:
+            got = json.load(f)
+    with open(os.path.join(HERE, "docs", "DISTILL_PARITY_REPORT.json")) as f:
+        keys = set(json.load(f))
+    phases = got["phases"]
+    numbers = [v for p in phases for _, v in p["loss_curve"]] + [
+        v for d in [got["baseline"]] + [p["e2e_after"] for p in phases] for v in d.values()]
+    if not keys <= set(got) or not np.isfinite(numbers).all() or \
+            [p["steps"] for p in phases] != [DISTILL_PARITY_STEPS, 2 * DISTILL_PARITY_STEPS,
+                                             DISTILL_PARITY_STEPS, DISTILL_PARITY_E2E_STEPS] or \
+            any(got["upsampler_kernel_launches"].values()):
+        raise AssertionError(f"distill_parity: report {sorted(got)}, steps "
+                             f"{[p['steps'] for p in phases]}, numbers {numbers}, launches "
+                             f"{got['upsampler_kernel_launches']}")
+    log("distill_parity", t0, teacher="klatt8", batch=got["settings"]["batch"],
+        frames=got["settings"]["frames"],
+        phases={p["module"]: {k: p[k] for k in ("steps", "loss_curve", "wall_s", "steps_per_s",
+                                                "captures", "capture_ms", "peak_mib")}
+                for p in phases},
+        final={k: got["final"][k] for k in ("wav_l1", "wav_max", "qp_match")},
+        wall_s_total=got["wall_s_total"], script_seconds=script_s,
+        kernel_launches=got["upsampler_kernel_launches"], nvidia_smi=card)
+
+
 MESH_RANKS = 2
 MESH_SEQPAR_SEGMENTS = 5  # (s - 1) * B = 4 rows: 2 a rank
 MESH_SEQPAR_TOL = 1e-5  # against the unsharded seqpar: the same operations, other batches
@@ -3414,6 +3479,7 @@ def main() -> int:
     by_path["float32"]["parity_graph"] = parity_graph_phase(device, card)
     train_graph_phase(device, card)
     feature_distill_graph_phase(device, card)
+    distill_parity_phase(device, card)
     mesh_phases(device, card, by_path)
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())
