@@ -323,7 +323,8 @@ def gather_tree(tree, shardings, mesh):
     return _map2(gather, tree, shardings)
 
 
-def _free_port() -> int:
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -374,7 +375,7 @@ def _spawn(n: int, backend_name: str, fn, args, limit_s: float):
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    port = free_port()
     procs = [ctx.Process(target=_rank_main,
                          args=(r, n, port, backend_name, fn, args, results), daemon=True)
              for r in range(n)]

@@ -33,7 +33,7 @@ import threading
 import numpy as np
 
 from ..errors import ErrorCode
-from .netserver import _resolve_param
+from .netserver import JOIN_TIMEOUT_S, _resolve_param, exit_census
 
 SERVICE = "beatrice.vc.VC"
 TAG_JSON = 0
@@ -118,10 +118,41 @@ def _audio_msg(audio: np.ndarray, dialect: str = "proto") -> bytes:
 class _ConvertHandler:
     """Bidi-stream handler: a reader thread drains client messages, a pump
     thread drains converted audio; the response generator multiplexes both
-    through one queue (gRPC responses must come from a single generator)."""
+    through one queue (gRPC responses must come from a single generator).
+    Each live call is registered (its stop flag, queue, threads and a flag
+    set when its generator has closed the session), so that `close_calls`
+    can end them before the model host stops."""
 
     def __init__(self, model_host):
         self.host = model_host
+        self._calls = {}
+        self._lock = threading.Lock()
+
+    def close_calls(self) -> list[str]:
+        """End every live call (after `server.stop`, which cancels them):
+        stop its pump, wake its generator, and wait for its reader and pump
+        threads and for its generator to close the session, within
+        JOIN_TIMEOUT_S.  Returns the names of what is still alive."""
+        import time
+
+        with self._lock:
+            calls = list(self._calls.values())
+        for call in calls:
+            call["stop"].set()
+            try:
+                call["outq"].put_nowait(None)
+            except queue.Full:
+                pass
+        deadline = time.monotonic() + JOIN_TIMEOUT_S
+        left = []
+        for call in calls:
+            for t in call["threads"]:
+                t.join(max(deadline - time.monotonic(), 0.0))
+                if t.is_alive():
+                    left.append(t.name)
+            if not call["done"].wait(max(deadline - time.monotonic(), 0.0)):
+                left.append(f"{call['threads'][0].name} (its generator)")
+        return left
 
     def __call__(self, request_iterator, context):
         outq: "queue.Queue[bytes | None]" = queue.Queue(maxsize=256)
@@ -192,10 +223,15 @@ class _ConvertHandler:
                 else:
                     time.sleep(0.005)
 
-        rt = threading.Thread(target=reader, daemon=True)
-        pt = threading.Thread(target=pump, daemon=True)
-        rt.start()
-        pt.start()
+        call = {"stop": stop, "outq": outq, "done": threading.Event()}
+        call["threads"] = [threading.Thread(target=reader, daemon=True,
+                                            name=f"vc-grpc-reader-{id(call):x}"),
+                           threading.Thread(target=pump, daemon=True,
+                                            name=f"vc-pump-{id(call):x}")]
+        with self._lock:
+            self._calls[id(call)] = call
+        for t in call["threads"]:
+            t.start()
         try:
             while True:
                 msg = outq.get()
@@ -204,14 +240,22 @@ class _ConvertHandler:
                 yield msg
         finally:
             stop.set()
+            call["threads"][1].join(JOIN_TIMEOUT_S)  # the pump, before its session closes
             s = session_box.get("s")
             if s is not None:
                 s.close()
+            call["done"].set()
+            with self._lock:
+                self._calls.pop(id(call), None)
 
 
 def make_server(model_host, port: int = 0, host_addr: str = "127.0.0.1",
                 max_workers: int = 16):
-    """-> (grpc.Server, bound_port)."""
+    """-> (grpc.Server, bound_port).  The server carries its Convert
+    handler (`convert_handler`, for `close_calls`) and its thread pool
+    (`executor`)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import grpc
 
     def metrics_handler(request, context):
@@ -219,9 +263,10 @@ def make_server(model_host, port: int = 0, host_addr: str = "127.0.0.1",
         raw = json.dumps(model_host.metrics(), default=float).encode("utf-8")
         return _pb_field(1, raw)
 
+    convert = _ConvertHandler(model_host)
     handlers = {
         "Convert": grpc.stream_stream_rpc_method_handler(
-            _ConvertHandler(model_host),
+            convert,
             request_deserializer=_identity,
             response_serializer=_identity,
         ),
@@ -231,10 +276,9 @@ def make_server(model_host, port: int = 0, host_addr: str = "127.0.0.1",
             response_serializer=_identity,
         ),
     }
-    server = grpc.server(
-        __import__("concurrent.futures", fromlist=["ThreadPoolExecutor"])
-        .ThreadPoolExecutor(max_workers=max_workers)
-    )
+    executor = ThreadPoolExecutor(max_workers=max_workers)
+    server = grpc.server(executor)
+    server.convert_handler, server.executor = convert, executor
     server.add_generic_rpc_handlers(
         (grpc.method_handlers_generic_handler(SERVICE, handlers),)
     )
@@ -245,7 +289,9 @@ def make_server(model_host, port: int = 0, host_addr: str = "127.0.0.1",
 def serve_grpc(model_path: str, port: int = 7779, capacity: int = 64,
                compute_dtype: str | None = None,
                host_addr: str = "127.0.0.1", device="cuda"):
-    """Blocking entry point used by `cli serve --grpc`."""
+    """Blocking entry point used by `cli serve --grpc`.  At exit it stops
+    the server (every call cancelled), ends and waits for each call's
+    threads, and only then stops the model host."""
     from .service import ModelHost
 
     mh = ModelHost(capacity=capacity, compute_dtype=compute_dtype, device=device)
@@ -259,7 +305,12 @@ def serve_grpc(model_path: str, port: int = 7779, capacity: int = 64,
     try:
         server.wait_for_termination()
     finally:
+        server.stop(grace=None).wait(JOIN_TIMEOUT_S)
+        stragglers = server.convert_handler.close_calls()
+        if not stragglers:
+            server.executor.shutdown(wait=True)
         mh.stop()
+        exit_census("serve_grpc", stragglers)
 
 
 class GRPCClient:

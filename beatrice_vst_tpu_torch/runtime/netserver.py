@@ -82,9 +82,9 @@ def _resolve_param(name):
 
 class _Handler(socketserver.BaseRequestHandler):
     def handle(self):
+        conn = self.server.track(self.request)
         host = self.server.model_host
         session = None
-        pump_stop = threading.Event()
         try:
             while True:
                 msg_type, payload = recv_frame(self.request)
@@ -99,10 +99,7 @@ class _Handler(socketserver.BaseRequestHandler):
                         # client sees is the handshake reply
                         send_frame(self.request, MSG_JSON,
                                    json.dumps({"ok": True, "session": session.session_id}).encode())
-                        pump = threading.Thread(
-                            target=self._pump, args=(session, pump_stop), daemon=True
-                        )
-                        pump.start()
+                        conn.start_pump(self._pump, session)
                     elif op == "set":
                         pid = _resolve_param(msg.get("param"))
                         if pid is None or session is None:
@@ -121,10 +118,10 @@ class _Handler(socketserver.BaseRequestHandler):
                 elif msg_type == MSG_AUDIO and session is not None:
                     audio = np.frombuffer(payload, np.float32)
                     session.push(audio)
+        except OSError:
+            pass  # the client went away, or the server shut the socket down
         finally:
-            pump_stop.set()
-            if session is not None:
-                session.close()
+            conn.finish(session)
 
     def _pump(self, session, stop: threading.Event) -> None:
         """Push converted audio back to the client as it becomes ready."""
@@ -142,11 +139,120 @@ class _Handler(socketserver.BaseRequestHandler):
                 time.sleep(0.005)
 
 
-class VCServer(socketserver.ThreadingTCPServer):
+# seconds a front end waits, at exit, for each live connection's threads
+JOIN_TIMEOUT_S = 10.0
+
+
+class Connection:
+    """One live connection of a socket front end: its socket, the stop flag
+    of its pump, and its threads (the handler's, then the pump's)."""
+
+    def __init__(self, server, sock):
+        self.server, self.sock = server, sock
+        self.stop = threading.Event()
+        self.threads = [threading.current_thread()]
+        self.threads[0].name = f"vc-conn-{id(self):x}"
+
+    def start_pump(self, target, session, *args) -> threading.Thread:
+        """Start the pump thread target(session, *args, stop)."""
+        pump = threading.Thread(target=target, args=(session, *args, self.stop), daemon=True,
+                                name=f"vc-pump-{id(self):x}")
+        self.threads.append(pump)
+        pump.start()
+        return pump
+
+    def finish(self, session) -> None:
+        """The handler's last act: stop the pump and wait for it before the
+        session closes under it, then leave the registry."""
+        self.stop.set()
+        for pump in self.threads[1:]:
+            pump.join(JOIN_TIMEOUT_S)
+        if session is not None:
+            session.close()
+        self.server.untrack(self)
+
+
+class ConnectionRegistry:
+    """The live connections of a threaded socket server, so that it can end
+    them before its `ModelHost` stops: a handler or pump thread left
+    running into the interpreter's exit can be inside a torch or ctypes
+    call when the runtime ends it, and the process then aborts."""
+
+    def _init_registry(self):
+        self._conns: set[Connection] = set()
+        self._conns_lock = threading.Lock()
+        self._closing = False
+
+    def track(self, sock) -> Connection:
+        conn = Connection(self, sock)
+        with self._conns_lock:
+            self._conns.add(conn)
+            closing = self._closing
+        if closing:  # accepted while the server was closing: end it now
+            _shut(sock)
+        return conn
+
+    def untrack(self, conn: Connection) -> None:
+        with self._conns_lock:
+            self._conns.discard(conn)
+
+    def close_connections(self) -> list[str]:
+        """End every live connection: set its pump's stop flag, shut its
+        socket down (the handler's blocking read returns) and join its
+        threads, all within JOIN_TIMEOUT_S.  Returns the names of the
+        threads still alive after it."""
+        import time
+
+        with self._conns_lock:
+            self._closing = True
+            conns = list(self._conns)
+        for conn in conns:
+            conn.stop.set()
+            _shut(conn.sock)
+        deadline = time.monotonic() + JOIN_TIMEOUT_S
+        threads = [t for conn in conns for t in list(conn.threads)]
+        for t in threads:
+            t.join(max(deadline - time.monotonic(), 0.0))
+        return [t.name for t in threads if t.is_alive()]
+
+    def close(self, model_host) -> list[str]:
+        """Stop serving: stop accepting, end every connection
+        (`close_connections`), then stop the model host.  Call after
+        `serve_forever` has returned (or call `shutdown()` first from
+        another thread).  Returns the connection threads that outlived
+        their bound."""
+        self.server_close()
+        stragglers = self.close_connections()
+        model_host.stop()
+        return stragglers
+
+
+def _shut(sock) -> None:
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass  # already closed by the peer or by the handler
+
+
+def exit_census(name: str, stragglers: list[str]) -> None:
+    """At a blocking entry point's exit: print the threads still alive
+    besides the main thread on stderr, and exit non-zero, naming them,
+    where a connection thread outlived its bound."""
+    import sys
+
+    alive = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
+    print(f"{name}: threads alive at exit: {json.dumps(alive)}", file=sys.stderr, flush=True)
+    if stragglers:
+        raise SystemExit(f"{name}: connection threads alive {JOIN_TIMEOUT_S} s after their "
+                         f"sockets were shut down: {', '.join(stragglers)}")
+
+
+class VCServer(ConnectionRegistry, socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
 
     def __init__(self, address, model_host):
+        self._init_registry()
         super().__init__(address, _Handler)
         self.model_host = model_host
 
@@ -154,7 +260,9 @@ class VCServer(socketserver.ThreadingTCPServer):
 def serve(model_path: str, port: int = 7777, capacity: int = 64,
           compute_dtype: str | None = None,
           host_addr: str = "127.0.0.1", device="cuda"):
-    """Blocking entry point used by `cli serve`."""
+    """Blocking entry point used by `cli serve`.  At exit (a signal turned
+    into SystemExit by the CLI) it stops accepting, ends and joins every
+    connection, and only then stops the model host."""
     from .service import ModelHost
 
     mh = ModelHost(capacity=capacity, compute_dtype=compute_dtype, device=device)
@@ -167,7 +275,7 @@ def serve(model_path: str, port: int = 7777, capacity: int = 64,
     try:
         srv.serve_forever()
     finally:
-        mh.stop()
+        exit_census("serve", srv.close(mh))
 
 
 class VCClient:

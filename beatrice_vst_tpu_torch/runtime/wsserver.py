@@ -30,7 +30,7 @@ import threading
 import numpy as np
 
 from ..errors import ErrorCode
-from .netserver import _resolve_param
+from .netserver import ConnectionRegistry, _resolve_param, exit_census
 
 _WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
 
@@ -231,11 +231,21 @@ def _handshake_server(sock, model_host=None) -> bool:
 class _WSHandler(socketserver.BaseRequestHandler):
     def handle(self):
         sock = self.request
-        if not _handshake_server(sock, self.server.model_host):
-            return
+        conn = self.server.track(sock)
+        live = {}  # the session, once opened
+        try:
+            if _handshake_server(sock, self.server.model_host):
+                self._converse(sock, conn, live)
+        except (ConnectionError, OSError, json.JSONDecodeError):
+            pass
+        finally:
+            conn.finish(live.get("session"))
+
+    def _converse(self, sock, conn, live):
+        """The WebSocket conversation after the upgrade; the session goes
+        into `live` for the handler to close."""
         host = self.server.model_host
         session = None
-        pump_stop = threading.Event()
         send_lock = threading.Lock()  # pump + control replies share the socket
 
         def send(opcode, payload):
@@ -245,53 +255,42 @@ class _WSHandler(socketserver.BaseRequestHandler):
         def send_json(obj):
             send(OP_TEXT, json.dumps(obj, default=float).encode("utf-8"))
 
-        try:
-            while True:
-                opcode, payload = read_message(sock)
-                if opcode is None or opcode == OP_CLOSE:
-                    if opcode == OP_CLOSE:
-                        with send_lock:
-                            sock.sendall(encode_frame(OP_CLOSE, payload[:2]))
-                    break
-                if opcode == OP_TEXT:
-                    msg = json.loads(payload.decode("utf-8"))
-                    op = msg.get("op")
-                    if op == "hello":
-                        session = host.open_session(
-                            float(msg.get("sample_rate", 48000))
-                        )
-                        threading.Thread(
-                            target=self._pump,
-                            args=(session, pump_stop, send),
-                            daemon=True,
-                        ).start()
-                        send_json({"ok": True, "session": session.session_id})
-                    elif op == "set":
-                        pid = _resolve_param(msg.get("param"))
-                        if pid is None or session is None:
-                            send_json({"ok": False, "error": "bad param/session"})
-                        else:
-                            err = session.set_parameter(pid, msg.get("value"))
-                            send_json(
-                                {"ok": err == ErrorCode.SUCCESS, "code": int(err)}
-                            )
-                    elif op == "metrics":
-                        send_json(host.metrics())
-                    elif op == "bye":
-                        break
+        while True:
+            opcode, payload = read_message(sock)
+            if opcode is None or opcode == OP_CLOSE:
+                if opcode == OP_CLOSE:
+                    with send_lock:
+                        sock.sendall(encode_frame(OP_CLOSE, payload[:2]))
+                break
+            if opcode == OP_TEXT:
+                msg = json.loads(payload.decode("utf-8"))
+                op = msg.get("op")
+                if op == "hello":
+                    session = live["session"] = host.open_session(
+                        float(msg.get("sample_rate", 48000))
+                    )
+                    conn.start_pump(self._pump, session, send)
+                    send_json({"ok": True, "session": session.session_id})
+                elif op == "set":
+                    pid = _resolve_param(msg.get("param"))
+                    if pid is None or session is None:
+                        send_json({"ok": False, "error": "bad param/session"})
                     else:
-                        send_json({"ok": False, "error": f"unknown op {op!r}"})
-                elif opcode == OP_BINARY and session is not None:
-                    session.push(np.frombuffer(payload, np.float32))
-        except (ConnectionError, OSError, json.JSONDecodeError):
-            pass
-        finally:
-            pump_stop.set()
-            if session is not None:
-                session.close()
+                        err = session.set_parameter(pid, msg.get("value"))
+                        send_json(
+                            {"ok": err == ErrorCode.SUCCESS, "code": int(err)}
+                        )
+                elif op == "metrics":
+                    send_json(host.metrics())
+                elif op == "bye":
+                    break
+                else:
+                    send_json({"ok": False, "error": f"unknown op {op!r}"})
+            elif opcode == OP_BINARY and session is not None:
+                session.push(np.frombuffer(payload, np.float32))
 
     @staticmethod
-    def _pump(session, stop: threading.Event, send) -> None:
+    def _pump(session, send, stop: threading.Event) -> None:
         import time
 
         while not stop.is_set():
@@ -305,11 +304,12 @@ class _WSHandler(socketserver.BaseRequestHandler):
                 time.sleep(0.005)
 
 
-class WSServer(socketserver.ThreadingTCPServer):
+class WSServer(ConnectionRegistry, socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
 
     def __init__(self, address, model_host):
+        self._init_registry()
         super().__init__(address, _WSHandler)
         self.model_host = model_host
 
@@ -317,7 +317,8 @@ class WSServer(socketserver.ThreadingTCPServer):
 def serve_ws(model_path: str, port: int = 7778, capacity: int = 64,
              compute_dtype: str | None = None,
              host_addr: str = "127.0.0.1", device="cuda"):
-    """Blocking entry point used by `cli serve --ws`."""
+    """Blocking entry point used by `cli serve --ws`; exits as `serve`
+    does (netserver.py): connections ended and joined, then the host."""
     from .service import ModelHost
 
     mh = ModelHost(capacity=capacity, compute_dtype=compute_dtype, device=device)
@@ -330,7 +331,7 @@ def serve_ws(model_path: str, port: int = 7778, capacity: int = 64,
     try:
         srv.serve_forever()
     finally:
-        mh.stop()
+        exit_census("serve_ws", srv.close(mh))
 
 
 class WSClient:

@@ -236,6 +236,12 @@ def nvidia_smi() -> str:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def card_line(device) -> str:
+    """A report's `device`: nvidia-smi's name and power limit on a card,
+    else "cpu"."""
+    return nvidia_smi() if torch.device(device).type == "cuda" else "cpu"
+
+
 def device_fields(device) -> dict:
     """The report's device name and, on a card, nvidia-smi's name and power
     limit."""

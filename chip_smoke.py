@@ -269,6 +269,38 @@ Phases, each printing one line with its seconds:
                 loss and diagnostic finite, neither form launched.
                 Reported: each phase's steps/s, captures, capture ms and
                 peak MiB, the final wav_l1, wav_max and qp_match, seconds.
+ 24c. baseline_configs -- BASELINE.json's configurations
+                (beatrice_vst_tpu_torch/scripts/baseline_configs.py, weights
+                from chain.init and random_bank at seeds 0 and 1): #1
+                offline (2 s, speaker 3, 4 VQ neighbours) held to the same
+                conversion on the CPU at 1e-3; #2 one stream in a bf16
+                engine of capacity 64 (isolated and amortized ticks); #3
+                the pitch/formant sweep, every pair finite and differing
+                from the neutral output; #4 256 streams over 16 speakers;
+                the bf16 form launched once a tick and warm-up tick of #2
+                and #4, neither form by #1 and #3.
+ 24d. train_demo -- the training demo (scripts/train_demo.py) at 20
+                distillation steps, the resume to 30 and 5 GAN steps, batch
+                16 x 16 frames: every loss finite, the loss lower at the
+                end, the resume where the first run's checkpoint ends,
+                neither form launched.
+ 24e. serve_soak -- the serving soak (scripts/serve_soak.py): ModelHost at
+                capacity 256 in bf16 behind the TCP front end, 8 client
+                processes streaming a tone at real-time pace for 10 s, at
+                25 frames a tick with the pipeline and at 1 frame a tick
+                without: the JAX script's gate (every client's audio
+                finite, non-silent and all back but its slack; the
+                scheduler's median span under the audio a tick carries);
+                the bf16 form once a tick at T = 1, never at T = 25;
+                shut down through the front end's own path (connections
+                joined, then the host stopped).
+ 24f. multihost -- scripts/multihost_smoke.py: two worker processes
+                (gloo ranks sharing the card; NCCL where there are two
+                cards) shard a 2.0.0-alpha.2 state of 16 streams over a
+                2 x 1 mesh and tick once, compiled: the global sum|out|
+                equal on both and within 1e-4 of one process's tick; the
+                f32 form launched once for the tick and once a warm-up
+                tick by each worker.
  25. mesh_*  -- the port's parallel/ package: one 2-rank gloo group
                 (parallel/mesh.py:spawn_cpu_ranks) whose ranks share the one
                 card and each compute on it, every case in one spawn
@@ -334,11 +366,13 @@ halves of parity, the older versions' engines, the in-process serving
 paths serve_golden, serve_pipeline and serve_ws, the soak's T = 1
 engines (soak_a, soak_b) and the latency probe's, the compiled streaming
 halves of parity_graph (their replays and their captures' warm-up
-ticks), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
+ticks), baseline_configs' #2 and #4 (baseline_2, baseline_4), the T = 1
+serve soak (serve_soak_t1; the T = 25 soak launches neither), the
+multihost workers (multihost, summed over both), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
 mesh_graph (replays and warm-up ticks), mesh_nccl and mesh_nccl_graph,
 summed over their ranks; the phases from train_golden to
-seqpar_graph (quality and train_real included) and from train_graph to
-distill_parity launch neither form), the card line, and the last line
+seqpar_graph (quality and train_real included), from train_graph to
+distill_parity, and train_demo launch neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
 torch.cuda.is_available() is false.
@@ -424,6 +458,7 @@ SERVE_TCP_IDLE_TICKS = 50
 SERVE_TCP_MIN_RETURN = 0.9  # a client pulls until this share of its audio is back
 SERVE_WS_CAPACITY = 8
 SERVE_ROW0_CAPACITY = 8  # serve_pipeline's case with only row 0 live
+BASELINE2_CAPACITY = 64  # baseline_configs' #2 on the card
 
 
 def log(phase, t0, **fields):
@@ -553,9 +588,12 @@ def path_batches():
     kernel (the golden runs, the serving phases and a mesh rank's rows)."""
     from beatrice_vst_tpu_torch import golden
 
+    from beatrice_vst_tpu_torch.scripts import multihost_smoke
+
     return sorted({golden.CAPACITY, golden.MORPH_CAPACITY, golden.SERVE_CAPACITY,
                    SERVE_ROW0_CAPACITY, SERVE_WS_CAPACITY, SERVE_TCP_CAPACITY,
-                   golden.CAPACITY // MESH_RANKS, CAPACITY // MESH_RANKS}
+                   golden.CAPACITY // MESH_RANKS, CAPACITY // MESH_RANKS,
+                   BASELINE2_CAPACITY, multihost_smoke.CAPACITY // multihost_smoke.N_PROC}
                   - set(KERNEL_BATCHES))
 
 
@@ -2715,6 +2753,163 @@ def distill_parity_phase(device, card):
         kernel_launches=got["upsampler_kernel_launches"], nvidia_smi=card)
 
 
+SOAK_CLIENTS = 8
+SOAK_SECONDS = 10.0
+SOAK_RUNS = ((25, True), (1, False))  # (frames a tick, pipeline)
+TRAIN_DEMO_STEPS = 20
+TRAIN_DEMO_GAN_STEPS = 5
+BASELINE_CPU_TOL = 1e-3  # #1 on the card against the same conversion on the CPU
+MULTIHOST_RTOL = 1e-4  # the two ranks' 8 rows against one process's 16 (GEMMs by row count)
+
+
+def baseline_configs_phase(device, card, by_path):
+    """BASELINE.json's configurations (beatrice_vst_tpu_torch/scripts/
+    baseline_configs.py): #1 offline (its output held to the same
+    conversion on the CPU at BASELINE_CPU_TOL), #2 one stream at capacity 64
+    and #4 256 streams (bf16, compiled: the bf16 form once a tick and
+    warm-up tick, the f32 form never), #3 the sweep (every pair finite and
+    differing from the neutral output); the launch counts set to 0 before
+    each configuration and read after it."""
+    import torch
+    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+    from beatrice_vst_tpu_torch.runtime.engine import GRAPH_WARMUP_TICKS
+    from beatrice_vst_tpu_torch.scripts import baseline_configs as B
+
+    t0 = time.perf_counter()
+    cfg, params, bank = B.draws(device)
+    utt = B.utterance()
+    report, counts = {"device": card}, {}
+    steps = (("config1_offline", lambda: B.config1_offline(cfg, params, bank, utt, device)),
+             ("config2_stream_latency",
+              lambda: B.config2_stream_latency(cfg, params, bank, utt, device)),
+             ("config3_control_sweep",
+              lambda: B.config3_control_sweep(cfg, params, bank, utt, device)),
+             ("config4_256_streams",
+              lambda: B.config4_256_streams(cfg, params, bank, utt, device)))
+    outputs = {}
+    for name, fn in steps:
+        reset_launch_counts()
+        report[name], outputs[name] = fn()
+        counts[name] = launch_counts()
+    cpu_cfg, cpu_params, cpu_bank = B.draws("cpu")
+    want = convert_utterance(cpu_params, cpu_cfg, cpu_bank, utt, B.SR,
+                             ConversionSettings(target_speaker=3, vq_num_neighbors=4),
+                             device="cpu")
+    got = outputs["config1_offline"]
+    dev1 = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    # ticks: #2 1 + 20 settling + 100 isolated + 100 amortized, #4 1 + 100
+    expect = {"config2_stream_latency": 221 + GRAPH_WARMUP_TICKS,
+              "config4_256_streams": 101 + GRAPH_WARMUP_TICKS}
+    bad = [name for name, c in counts.items()
+           if c["bfloat16"] != expect.get(name, 0) or c["float32"]]
+    sweep = report["config3_control_sweep"]
+    out2, out4 = outputs["config2_stream_latency"], outputs["config4_256_streams"]
+    if bad or not report["config1_offline"]["finite"] or dev1 > BASELINE_CPU_TOL \
+            or not all(r["finite"] and r["differs_from_neutral"] for r in sweep) \
+            or not np.isfinite(out2).all() or np.abs(out2[0]).max() <= 1e-3 \
+            or not np.isfinite(out4).all() or (np.abs(out4).max(axis=1) <= 1e-3).any():
+        raise AssertionError(f"baseline_configs: launches {counts} (want {expect}), #1 vs the "
+                             f"CPU {dev1}, report {report}")
+    by_path["bfloat16"]["baseline_2"] = counts["config2_stream_latency"]["bfloat16"]
+    by_path["bfloat16"]["baseline_4"] = counts["config4_256_streams"]["bfloat16"]
+    log("baseline_configs", t0, report=report, config1_max_abs_dev_vs_cpu=dev1,
+        kernel_launches=counts, torch=torch.__version__, nvidia_smi=card)
+    return report
+
+
+def train_demo_phase(device, card):
+    """The training demo (beatrice_vst_tpu_torch/scripts/train_demo.py) at
+    TRAIN_DEMO_STEPS distillation steps, the resume to 10 more and
+    TRAIN_DEMO_GAN_STEPS GAN steps: every logged loss finite, the loss
+    lower at the end (`converged`), the resume at the first logged step
+    after the first run's last, neither form launched."""
+    from beatrice_vst_tpu_torch.scripts import train_demo
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    report = train_demo.run(TRAIN_DEMO_STEPS, TRAIN_DEMO_GAN_STEPS, device, log_fn=lambda _: None)
+    counts = launch_counts()
+    losses = [v for _, v in report["distill"]["loss_curve"] + report["gan"]["g_loss_curve"]]
+    resumed = -(-TRAIN_DEMO_STEPS // 5) * 5  # the first multiple of log_every=5 from there
+    if any(counts.values()) or not np.isfinite(losses).all() or not report["converged"] \
+            or report["resume"]["resumed_at"] != resumed:
+        raise AssertionError(f"train_demo: launches {counts}, report {report}")
+    log("train_demo", t0, report=report, kernel_launches=counts, nvidia_smi=card)
+    return report
+
+
+def serve_soak_phase(device, card, by_path):
+    """The serving soak (beatrice_vst_tpu_torch/scripts/serve_soak.py) with
+    SOAK_CLIENTS client processes for SOAK_SECONDS, at each of SOAK_RUNS
+    (capacity 256, bf16, the TCP front end in this process): the JAX
+    script's gate (`ok`); the bf16 form launched once a tick and warm-up
+    tick at T = 1 (within the one tick between the metrics read and the
+    counts'), never at T = 25 (the stage loop), the f32 form never."""
+    from unittest import mock
+
+    from beatrice_vst_tpu_torch.scripts import serve_soak
+
+    entries = {}
+    for fpt, pipeline in SOAK_RUNS:
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        with mock.patch.dict(os.environ, SOAK_FPT=str(fpt), SOAK_PIPELINE=str(int(pipeline))):
+            for knob in ("SOAK_MIN_CADENCE", "SOAK_QUIET_S", "BEATRICE_TICK_PERIOD_SCALE"):
+                os.environ.pop(knob, None)  # the defaults
+            key, rep = serve_soak.run(SOAK_CLIENTS, SOAK_SECONDS, device, log=lambda _: None)
+        counts = launch_counts()
+        m = rep["server_metrics"]
+        seen = rep["upsampler_kernel_launches"]
+        ticks = m["ticks"] + m.get("graph_warmup_ticks", 0)
+        launches_ok = (0 <= seen["bfloat16"] - ticks <= 1 and counts["bfloat16"] >= ticks
+                       if fpt == 1 else not counts["bfloat16"]) and not counts["float32"]
+        if not rep["ok"] or not launches_ok or len(rep["clients"]) != SOAK_CLIENTS:
+            raise AssertionError(f"serve_soak T={fpt} pipeline={pipeline}: launches {counts} "
+                                 f"(metrics {seen}, {ticks} ticks), report {rep}")
+        by_path["bfloat16"][f"serve_soak_t{fpt}"] = counts["bfloat16"]
+        entries[key] = rep
+        log("serve_soak", t0, entry=key, frames_per_tick=fpt, pipeline=pipeline,
+            clients=SOAK_CLIENTS, duration_s=SOAK_SECONDS, ok=rep["ok"],
+            tick_cadence_hz=rep["tick_cadence_hz"], serve_tick_p50_ms=rep["serve_tick_p50_ms"],
+            serve_tick_p90_ms=rep["serve_tick_p90_ms"], engine_enqueue_p50_ms=m["tick_p50_ms"],
+            ticks=m["ticks"], underruns=m["underruns"],
+            session_dropped_in=m["session_dropped_in"],
+            session_dropped_out=m["session_dropped_out"], wall_s=rep["wall_s"],
+            clients_report=rep["clients"], kernel_launches=counts, nvidia_smi=card)
+    return entries
+
+
+def multihost_phase(device, card, by_path):
+    """The multi-host smoke test (beatrice_vst_tpu_torch/scripts/
+    multihost_smoke.py): two worker processes, gloo ranks sharing the card
+    (NCCL where there are two cards), a 2.0.0-alpha.2 state of 16 streams
+    over a 2 x 1 mesh, one compiled tick: both exit 0, the same global
+    sum on both, equal to one process's eager tick of the 16 streams on
+    the card within MULTIHOST_RTOL; the f32 form launched by each worker
+    once for the tick and once a warm-up tick of its capture."""
+    from beatrice_vst_tpu_torch.runtime.engine import GRAPH_WARMUP_TICKS, engine_tick
+    from beatrice_vst_tpu_torch.scripts import multihost_smoke as M
+
+    t0 = time.perf_counter()
+    records = M.run(device)
+    cfg, p, b, state, x = M.engine_inputs(device)
+    reset_launch_counts()
+    out, _ = engine_tick(p, b, state, x, cfg=cfg)
+    want = float(out.double().abs().sum())
+    reset_launch_counts()
+    got = records[0]["sum_abs_out"]
+    rel = abs(got - want) / want
+    launches = [r["upsampler_kernel_launches"] for r in records]
+    if any(r["sum_abs_out"] != got or not r["finite"] or not r["compiled"] for r in records) \
+            or rel > MULTIHOST_RTOL or not want \
+            or any(c != {"float32": 1 + GRAPH_WARMUP_TICKS, "bfloat16": 0} for c in launches):
+        raise AssertionError(f"multihost: records {records}, one process {want}")
+    by_path["float32"]["multihost"] = sum(c["float32"] for c in launches)
+    log("multihost", t0, backend=records[0]["backend"], ranks=len(records),
+        rows_a_rank=records[0]["rows"], sum_abs_out=got, one_process=want, rel_dev=rel,
+        kernel_launches=launches, nvidia_smi=card)
+
+
 MESH_RANKS = 2
 MESH_SEQPAR_SEGMENTS = 5  # (s - 1) * B = 4 rows: 2 a rank
 MESH_SEQPAR_TOL = 1e-5  # against the unsharded seqpar: the same operations, other batches
@@ -3480,6 +3675,10 @@ def main() -> int:
     train_graph_phase(device, card)
     feature_distill_graph_phase(device, card)
     distill_parity_phase(device, card)
+    baseline_configs_phase(device, card, by_path)
+    train_demo_phase(device, card)
+    serve_soak_phase(device, card, by_path)
+    multihost_phase(device, card, by_path)
     mesh_phases(device, card, by_path)
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())
