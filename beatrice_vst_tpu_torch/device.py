@@ -1,10 +1,12 @@
-"""Device selection for the port's entry points, and the constants a
-captured CUDA graph keeps alive (`pin`)."""
+"""Device selection for the port's entry points, the constants a
+captured CUDA graph keeps alive (`pin`), and the chain's stage marks
+(`mark`, read by the tracer in `runtime/metrics.py`)."""
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 
@@ -51,3 +53,51 @@ def pinning():
         yield pins
     finally:
         _capture.pins = None
+
+
+END = "end"  # the closing mark of a tick's device span
+
+
+class _Active(threading.local):
+    recorder = None  # this thread's mark recorder while one is open
+
+
+_active = _Active()
+
+
+class _Recorder:
+    __slots__ = ("marks", "cuda", "external")
+
+    def __init__(self, cuda: bool, external: bool):
+        self.marks, self.cuda, self.external = [], cuda, external
+
+    def add(self, name: str) -> None:
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True, external=self.external)
+            event.record()
+            self.marks.append((name, event))
+        else:
+            self.marks.append((name, time.perf_counter_ns()))
+
+
+def mark(name: str) -> None:
+    """Stage `name` of the chain starts here: a no-op unless this thread
+    records marks (`recording_marks`)."""
+    recorder = _active.recorder
+    if recorder is not None:
+        recorder.add(name)
+
+
+@contextlib.contextmanager
+def recording_marks(device, capture: bool = False):
+    """Record this thread's `mark`s: yields their list of (name, stamp),
+    which ends with END as the context exits.  A stamp is a CUDA event on
+    a card (with capture, an event-record node of the graph being
+    captured), host ns on the CPU."""
+    recorder = _Recorder(torch.device(device).type == "cuda", capture)
+    outer, _active.recorder = _active.recorder, recorder
+    try:
+        yield recorder.marks
+        recorder.add(END)
+    finally:
+        _active.recorder = outer

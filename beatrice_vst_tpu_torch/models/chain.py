@@ -36,7 +36,7 @@ import dataclasses
 import torch
 
 from ..constants import V20RC0, VersionSpec
-from ..device import resolve_device
+from ..device import mark, resolve_device
 from ..ops.pitch_math import transform_pitch
 from . import phone_extractor, pitch_estimator, waveform_generator
 
@@ -108,12 +108,16 @@ def apply(params, cfg: VoiceConverterConfig, audio16, state, cond, compute_dtype
     distances at T = 1 (`vq_knn_smooth_shared`).  with_taps also returns
     the stage boundaries (`chain.py:242-246`), the supervision points of
     the training losses: (audio24, state, {"phone" (after the VQ),
-    "qp_raw", "qp", "pitch_feats", "pitch_logits"})."""
+    "qp_raw", "qp", "pitch_feats", "pitch_logits"}).  Marks the stages
+    phone, vq and pitch (`device.mark`)."""
     spec = cfg.spec
+    mark("phone")
     phone, phone_state = phone_extractor.apply(params["phone"], cfg.phone, audio16,
                                                state["phone"], compute_dtype)
     if spec.has_vq:
+        mark("vq")
         phone = _smooth_phone(phone, cond, vq_int8_query)
+    mark("pitch")
     pe_out = pitch_estimator.apply(
         params["pitch"], cfg.pitch, audio16, state["pitch"], cond["min_q"],
         cond["max_q"], compute_dtype, with_logits=soft_pitch or with_taps)

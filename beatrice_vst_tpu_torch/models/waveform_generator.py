@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..constants import OUT_HOP_LENGTH, OUT_SAMPLE_RATE, VersionSpec
-from ..device import resolve_device
+from ..device import mark, resolve_device
 from ..parallel import collectives
 from . import layers
 from .fused_upsampler import fused_upsample, fused_upsample_reference, head_params
@@ -341,8 +341,10 @@ def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
     (`layers.py:556 cross_attention`: the K/V weights get a gradient).
     With compute_dtype the residual stream and the carries are in
     it; the head computes in it.  Returns (audio [B, T*240] f32 in
-    [-1, 1], new_state).
+    [-1, 1], new_state).  Marks the stages wg_in, wg_conv and wg_attn (each
+    block), wg_out and head (`device.mark`).
     """
+    mark("wg_in")
     b, t = quantized_pitch.shape
     if cfg.use_kv_attention and kv_cache is None and kv_slot is None and kv_embedding is not None:
         kv_cache = project_kv(params, kv_embedding, compute_dtype)
@@ -374,12 +376,16 @@ def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
             kv_slot, kv_bank["k"].shape[0]).to(torch.float32)
     new_blocks = []
     for i, (p, s) in enumerate(zip(params["blocks"], state["blocks"])):
+        mark("wg_conv")
         h, ns = layers.conv_block(p["conv"], h, s, 1, compute_dtype)
         if cfg.use_kv_attention:
+            mark("wg_attn")
             h = _attention(p["attn"], h, i, kv_cache, kv_bank, slot_onehot, compute_dtype)
         new_blocks.append(ns)
+    mark("wg_out")
     h = layers.layer_norm(params["out_ln"], h)
 
+    mark("head")
     periodicity = pitch_features[..., 0]  # feature 0 gates voicing
     if t == 1:
         src, new_phase, new_counter = source_features(cfg, qp, periodicity, state)

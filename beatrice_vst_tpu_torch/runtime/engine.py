@@ -61,18 +61,18 @@ rank's rows, with the weights replicated or split over 'model'.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import heapq
 import threading
-import time
 
 import numpy as np
 import torch
 
 from ..constants import (COMMON_HOP_LENGTH, MAX_N_SPEAKERS, SPH_AVG_MAX_N_SPEAKERS, V20RC0,
                          VersionSpec)
-from ..device import resolve_device
+from ..device import mark, recording_marks, resolve_device
 from ..errors import BeatriceError, ErrorCode
 from ..models import chain, waveform_generator
 from ..models.chain import VoiceConverterConfig
@@ -302,6 +302,7 @@ def engine_tick(params, bank, state, audio48, *, cfg: EngineConfig):
     state) (`engine.py:331`).  params and bank as `StreamEngine` holds
     them (`cast_params` and `prepare_bank`)."""
     c = state["controls"]
+    mark("edge_in")
     # a client feeding NaN/inf or absurd amplitudes only hurts its own
     # stream, and only for this block
     audio48 = torch.clamp(torch.nan_to_num(audio48, nan=0.0, posinf=0.0, neginf=0.0),
@@ -309,8 +310,10 @@ def engine_tick(params, bank, state, audio48, *, cfg: EngineConfig):
     x, gain_in_db = gain_process(audio48, state["gain_in_db"], c["input_gain_db"], 48000.0)
     t = cfg.frames_per_tick
     x16, rs_in_state = input_resampler_48k_to_16k(t).apply_block(x, state["rs_in"])
+    mark("cond")
     cond = _build_cond(cfg, bank, state)
     y24, model_state = chain.apply(params, cfg.model, x16, state["model"], cond, cfg.dtype)
+    mark("edge_out")
     y48, rs_out_state = output_resampler_24k_to_48k(t).apply_block(y24, state["rs_out"])
     y48, gain_out_db = gain_process(y48, state["gain_out_db"], c["output_gain_db"], 48000.0)
     y48 = torch.where(c["active"][:, None], y48, 0.0)
@@ -345,6 +348,9 @@ class TickStep:
     CUDA graph captured here after GRAPH_WARMUP_TICKS warm-up ticks on a
     scratch copy of the state (they launch the kernel, and the launches
     count: `warmup_ticks`), each tick a copy in, a replay and a copy out.
+    `trace()` captures the graph's marked twin (`CompiledStep.marked_twin`:
+    the chain's stage marks as event-record nodes), which a traced tick
+    (`tick(audio48, traced=True)`) replays instead.
     On a mesh the state is a rank's rows (`state_sharding`) and the
     weights are replicated or split over 'model' (`DTensor`s, whose
     collectives then run inside the graph, on NCCL ranks).  Eager
@@ -360,6 +366,7 @@ class TickStep:
         split = any(is_sharded(x) for x in graphs.leaves(params))
         self.compiled = graphs.resolve_jit(jit, mesh, collectives=split)
         self.step, self.warmup_ticks, self.capture_ms = None, 0, 0.0
+        self.traced = None  # the marked twin (`trace`)
         if not self.compiled:
             return
         counter = state["frame_counter"]
@@ -370,14 +377,22 @@ class TickStep:
         if self.step.graph is not None:
             self.warmup_ticks, self.capture_ms = GRAPH_WARMUP_TICKS, self.step.capture_ms
 
-    def __call__(self, audio48) -> torch.Tensor:
+    def trace(self) -> list:
+        """The marked twin's stage marks, the twin captured at the first call
+        (a compiled step on CUDA only)."""
+        if self.traced is None:
+            self.traced = self.step.marked_twin()
+        return self.traced.marks
+
+    def __call__(self, audio48, traced: bool = False) -> torch.Tensor:
         if self.step is None:
             out, self.state = engine_tick(self.params, self.bank, self.state, audio48,
                                           cfg=self.cfg)
             return out
-        self.step.args[1].copy_(audio48)
+        step = self.traced if traced else self.step
+        step.args[1].copy_(audio48)
         # the graph's output is overwritten by the next replay
-        return self.step().clone()
+        return step().clone()
 
 
 def apply_control_updates(state, updates) -> None:
@@ -558,7 +573,8 @@ class StreamEngine:
         # every control set through set_control, stream -> field -> value
         # in the order first set: recover() replays it
         self._applied: dict[int, dict[str, np.ndarray]] = {}
-        self.metrics = EngineMetrics()
+        self.metrics = EngineMetrics(device=self.device)
+        self.tracer = self.metrics.tracer
         self.counters = {"admitted": 0, "evicted": 0}
         self._graph = None
         if jit and self.device.type == "cuda":
@@ -681,26 +697,36 @@ class StreamEngine:
         reset admitted slots, recompute the morphed embeddings of streams
         whose morph controls changed, refresh the per-stream K/V cache of
         streams whose speaker or morph changed (per-stream mode), and
-        project the morphed K/V into leased morph slots (slots mode)."""
+        project the morphed K/V into leased morph slots (slots mode).  Each
+        step adds the edits or rows it applied to its counter
+        (`self.tracer.counters`)."""
+        counters = self.tracer.counters
         if self._context_reset:
             reset_streams(self.state, self._index(sorted(self._context_reset)))
+            counters["rows_reset_context"] += len(self._context_reset)
             self._context_reset.clear()
         if self.stage.pending():
-            apply_control_updates(self.state, self.stage.drain())
+            updates = self.stage.drain()
+            apply_control_updates(self.state, updates)
+            counters["edits_applied"] += sum(len(idx) for idx, _ in updates.values())
         if self._pending_reset:
             reset_streams(self.state, self._index(sorted(self._pending_reset)))
+            counters["rows_reset_admitted"] += len(self._pending_reset)
             self._pending_reset.clear()
         if self._morph_dirty:
             refresh_morphed(self.state, self.bank, self._index(sorted(self._morph_dirty)))
+            counters["morph_rows_refreshed"] += len(self._morph_dirty)
             self._morph_dirty.clear()
         if self._kv_dirty and "kv_cache" in self.state:
             refresh_kv_cache(self.params, self.bank, self.state,
                              self._index(sorted(self._kv_dirty)), self.cfg.dtype)
+            counters["kv_rows_refreshed"] += len(self._kv_dirty)
         self._kv_dirty.clear()
         streams = sorted(i for i in self._slot_dirty if i in self._morph_slot)
         if streams:
             refresh_kv_slots(self.params, self.state, self.cfg, self._index(streams),
                              self._index([self._morph_slot[i] for i in streams]))
+            counters["slot_rows_projected"] += len(streams)
         self._slot_dirty.clear()
 
     @_locked
@@ -752,25 +778,69 @@ class StreamEngine:
 
     def tick(self, audio48_in) -> torch.Tensor:
         """audio48_in: [capacity, T*480] (numpy or tensor) -> [capacity,
-        T*480] on the engine's device, a new tensor each tick."""
+        T*480] on the engine's device, a new tensor each tick.  While
+        tracing is on it records the spans engine.tick, engine.flush_controls
+        and engine.launch, and reads the previous tick's device span and
+        stage marks (`metrics`)."""
+        tr = self.tracer
+        if not tr.on:
+            x = self._input(audio48_in)
+            self.flush_controls()
+            stamp = self.metrics.begin_tick()
+            out, _ = self._launch(x, False)
+            self.metrics.end_tick(stamp, self.n_active, self.cfg.frames_per_tick)
+            return out
+        tick = self.metrics.ticks
+        with tr.opened("engine.tick", tick) as top:
+            # the graph's marks are recorded again by this tick's replay
+            tr.read_marks(drop=True)
+            x = self._input(audio48_in)
+            with tr.opened("engine.flush_controls", tick):
+                self.flush_controls()
+            with tr.opened("engine.launch", tick):
+                stamp = self.metrics.begin_tick()
+                out, marks = self._launch(x, True)
+                pair = self.metrics.end_tick(stamp, self.n_active, self.cfg.frames_per_tick)
+            tr.pend(tick, top, pair, marks)
+        return out
+
+    def _input(self, audio48_in) -> torch.Tensor:
         x = torch.as_tensor(audio48_in, dtype=torch.float32, device=self.device)
         expect = (self.cfg.capacity, self.cfg.samples_per_tick)
         if tuple(x.shape) != expect:
             raise ValueError(f"tick input shape {tuple(x.shape)}, expected {expect}")
-        self.flush_controls()
-        t0 = time.perf_counter()
+        return x
+
+    def _launch(self, x, traced: bool):
+        """One tick's replay or eager call: (output, its stage marks where
+        traced)."""
         if self._graph is not None:
-            out = self._graph(x)
-        elif self.jit:
-            out = donated_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
-        else:
-            out, self.state = engine_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
-        self.metrics.record_tick(time.perf_counter() - t0, self.n_active,
-                                 self.cfg.frames_per_tick)
-        return out
+            out = self._graph(x, traced=traced)
+            return out, self._graph.traced.marks if traced else None
+        with (recording_marks(self.device) if traced else contextlib.nullcontext()) as marks:
+            if self.jit:
+                out = donated_tick(self.params, self.bank, self.state, x, cfg=self.cfg)
+            else:
+                out, self.state = engine_tick(self.params, self.bank, self.state, x,
+                                              cfg=self.cfg)
+        return out, marks
+
+    def tracing(self, on: bool) -> dict:
+        """Switch the tracer on or off (`metrics.Tracer.switch`).  The
+        stage marks cost the card about 5 us each, 1 % of a 4,096-stream
+        tick, so the tick graph holds none: the first switch on captures its
+        marked twin (`TickStep.trace`), which the ticks replay while tracing
+        is on.
+        Returns {"drift_ns"}: at a switch off, the device clock's drift
+        against the host's since the switch on (None on the CPU)."""
+        if on and self._graph is not None:
+            with torch.cuda.device(self.device):
+                self._graph.trace()
+        return self.tracer.switch(on)
 
     def metrics_snapshot(self) -> dict:
-        return {**self.metrics.snapshot(self.n_active), **self.counters}
+        return {**self.metrics.snapshot(self.n_active), **self.counters,
+                **self.tracer.counters}
 
     @property
     def n_active(self) -> int:

@@ -32,12 +32,14 @@ it.
 from __future__ import annotations
 
 import collections
+import contextlib
+import copy
 import threading
 import time
 
 import torch
 
-from ..device import pinning
+from ..device import pinning, recording_marks
 from ..models import fused_upsampler
 from ..parallel.collectives import is_sharded
 
@@ -242,6 +244,7 @@ class CompiledStep:
         self.device = _device(self.args)
         self.graph = None
         self.outputs = None
+        self.marks: list = []  # a marked twin's stage marks
         self.recorded: dict = {}
         self.pins: list = []
         self.capture_ms = 0.0
@@ -253,21 +256,37 @@ class CompiledStep:
         if self.device.type == "cuda":
             self._capture(self.args if warmup_args is None else tuple(warmup_args))
 
-    def _capture(self, warmup_args) -> None:
+    def _capture(self, warmup_args, pool=None, marks: bool = False) -> None:
         t0 = time.perf_counter()
         with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(GRAPH_WARMUP_CALLS):
-                    self.step(*warmup_args)
-            torch.cuda.current_stream().wait_stream(side)
+            if warmup_args is not None:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(GRAPH_WARMUP_CALLS):
+                        self.step(*warmup_args)
+                torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            marking = (recording_marks(self.device, capture=True) if marks
+                       else contextlib.nullcontext([]))
             with fused_upsampler.recording() as recorded, pinning() as pins:
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    self.outputs = self.step(*self.args)
-        self.graph, self.recorded, self.pins = graph, dict(recorded), pins
+                with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                    with marking as marks:
+                        self.outputs = self.step(*self.args)
+        self.graph, self.recorded, self.pins, self.marks = graph, dict(recorded), pins, marks
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def marked_twin(self) -> "CompiledStep":
+        """The step captured once more over the same static tensors, with the
+        stage marks it makes (`device.mark`) as event-record nodes of the
+        graph, in the twin's `marks`: without warm-up (this step's built
+        every constant it reads) and in this graph's memory pool, which is
+        safe as a caller replays the one or the other on its stream, never
+        both at once, and neither keeps an intermediate across replays."""
+        twin = copy.copy(self)
+        twin.replays = 0
+        twin._capture(None, pool=self.graph.pool(), marks=True)
+        return twin
 
     def __call__(self):
         self.replays += 1

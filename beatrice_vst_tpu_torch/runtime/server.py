@@ -36,7 +36,7 @@ buffer, so each tick's fetch reads that tick's own output.
 
 from __future__ import annotations
 
-import collections
+import contextlib
 import os
 import sys
 import threading
@@ -49,6 +49,9 @@ import torch
 from ..constants import COMMON_SAMPLE_RATE
 from ..models import fused_upsampler
 from ..native import HostResampler, SpscRing
+
+# the parts of a scheduler tick, each a span serve.<part> (`metrics.py`)
+SERVE_PARTS = ("gather", "wait_in", "engine", "wait_out", "scatter")
 
 
 class StreamSession:
@@ -144,7 +147,6 @@ class StreamingServer:
         self._parity = 0
         self._inflight: tuple | None = None  # the fetch of tick t-1
         self._recover_callbacks: list = []
-        self._tick_spans = collections.deque(maxlen=1024)  # host ms per tick_once
         self._ticks = 0
         self._started: float | None = None
         self._last_error = ""
@@ -173,52 +175,68 @@ class StreamingServer:
             self._out_host[buf][:hi].copy_(out_dev[:hi], non_blocking=True)
         return buf, hi, _record_event(self._device), sessions
 
-    def _scatter(self, buf: int, hi: int, event, sessions) -> None:
+    def _scatter(self, buf: int, hi: int, event, sessions, tick=None) -> None:
         """Wait for a fetched output's copy, then fan it out to its
-        sessions' rings."""
+        sessions' rings; inside tick_once (given its `tick`), as the spans
+        serve.wait_out and serve.scatter."""
         if not hi:
             return
-        if event is not None:
-            event.synchronize()
-        out = self._out_np[buf]
-        n = out.shape[1]
-        for s in sessions:
-            written = s.ring_out.write(out[s.idx])
-            if written < n:  # the client is not pulling; newest dropped
-                s.dropped_out += n - written
+        tr = self.engine.tracer
+
+        def part(name):
+            return tr.span(name, tick) if tick is not None else contextlib.nullcontext()
+
+        with part("serve.wait_out"):
+            if event is not None:
+                event.synchronize()
+        with part("serve.scatter"):
+            out = self._out_np[buf]
+            n = out.shape[1]
+            for s in sessions:
+                written = s.ring_out.write(out[s.idx])
+                if written < n:  # the client is not pulling; newest dropped
+                    s.dropped_out += n - written
 
     def tick_once(self) -> None:
         """One scheduler tick: gather inputs, run the engine, scatter.
 
         In pipeline mode the scatter is of the previous tick's output:
         this tick's device work proceeds while the host distributes tick
-        t-1."""
-        t0 = time.perf_counter()
-        n = self.engine.cfg.samples_per_tick
-        with self._lock:
-            sessions = list(self.sessions.values())
-        buf = self._parity
-        self._parity ^= 1
-        if self._in_copied[buf] is not None:
-            # the copy out of this buffer two ticks ago must be done
-            # before the host overwrites it
-            self._in_copied[buf].synchronize()
-        x = self._in_np[buf]
-        x[:] = 0.0
-        for s in sessions:
-            got = s.ring_in.read(n)
-            if len(got) < n:
-                s.underruns += 1
-            x[s.idx, :len(got)] = got
-        self._in_dev.copy_(self._in_host[buf], non_blocking=True)
-        self._in_copied[buf] = _record_event(self._device)
-        fetched = self._fetch(self.engine.tick(self._in_dev), sessions, buf)
-        if self.pipeline:
-            fetched, self._inflight = self._inflight, fetched
-        if fetched is not None:
-            self._scatter(*fetched)
-        self._ticks += 1
-        self._tick_spans.append((time.perf_counter() - t0) * 1e3)
+        t-1.  Timed as the span serve.tick_once and its parts (gather,
+        wait_in, engine, wait_out, scatter: `metrics.py`), each kept in
+        the tracer's window always and recorded while tracing is on; all
+        carry the sequence number of the engine tick this one runs."""
+        tr = self.engine.tracer
+        tick = self.engine.metrics.ticks
+        with tr.span("serve.tick_once", tick):
+            n = self.engine.cfg.samples_per_tick
+            with self._lock:
+                sessions = list(self.sessions.values())
+            buf = self._parity
+            self._parity ^= 1
+            with tr.span("serve.wait_in", tick):
+                if self._in_copied[buf] is not None:
+                    # the copy out of this buffer two ticks ago must be done
+                    # before the host overwrites it
+                    self._in_copied[buf].synchronize()
+            with tr.span("serve.gather", tick):
+                x = self._in_np[buf]
+                x[:] = 0.0
+                for s in sessions:
+                    got = s.ring_in.read(n)
+                    if len(got) < n:
+                        s.underruns += 1
+                    x[s.idx, :len(got)] = got
+                self._in_dev.copy_(self._in_host[buf], non_blocking=True)
+                self._in_copied[buf] = _record_event(self._device)
+            with tr.span("serve.engine", tick):
+                out = self.engine.tick(self._in_dev)
+            fetched = self._fetch(out, sessions, buf)
+            if self.pipeline:
+                fetched, self._inflight = self._inflight, fetched
+            if fetched is not None:
+                self._scatter(*fetched, tick=tick)
+            self._ticks += 1
 
     def flush_pipeline(self) -> None:
         """Drain the in-flight tick (pipeline mode): scatter its output
@@ -310,20 +328,26 @@ class StreamingServer:
 
     def metrics(self) -> dict:
         """The engine's metrics, the sessions' underruns and drops, and the
-        scheduler's own: each tick_once's host span (gather to scatter, so
-        in plain mode it waits for the tick's output on the device), ticks
-        per second since start() (100 is real time at T = 1), and the
-        upsampler kernel's launches in this process by form (its counters
-        in models/fused_upsampler.py; none on the CPU)."""
+        scheduler's own: over the tracer's window of the last ticks, the
+        p50 and p90 of each tick_once's host span (serve_tick_p50_ms,
+        serve_tick_p90_ms: gather to scatter, so in plain mode it waits
+        for the tick's output on the device) and of each of its parts
+        (serve_<part>_p50_ms, serve_<part>_p90_ms for gather, wait_in,
+        engine, wait_out, scatter), ticks per second since start() (100 is
+        real time at T = 1), and the upsampler kernel's launches in this
+        process by form (its counters in models/fused_upsampler.py; none
+        on the CPU)."""
         snap = self.engine.metrics_snapshot()
         with self._lock:
             sessions = list(self.sessions.values())
         snap["session_underruns"] = sum(s.underruns for s in sessions)
         snap["session_dropped_in"] = sum(s.dropped_in for s in sessions)
         snap["session_dropped_out"] = sum(s.dropped_out for s in sessions)
-        spans = np.asarray(list(self._tick_spans) or [0.0])
-        snap["serve_tick_p50_ms"] = float(np.percentile(spans, 50))
-        snap["serve_tick_p90_ms"] = float(np.percentile(spans, 90))
+        tr = self.engine.tracer
+        snap["serve_tick_p50_ms"], snap["serve_tick_p90_ms"] = tr.window_ms("serve.tick_once")
+        for part in SERVE_PARTS:
+            snap[f"serve_{part}_p50_ms"], snap[f"serve_{part}_p90_ms"] = tr.window_ms(
+                f"serve.{part}")
         snap["upsampler_kernel_launches"] = {"float32": fused_upsampler.launches,
                                              "bfloat16": fused_upsampler.launches_bf16}
         if self._started is not None:

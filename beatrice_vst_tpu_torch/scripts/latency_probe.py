@@ -35,9 +35,10 @@ latency measures that.  (The JAX probe's test, pace >= the tick wall
 1000 / rate, cannot hold at 10 ms: the period caps the rate at 100.)
 
 The report's `scheduler.dispatch_tick_*` numbers are the engine's tick
-spans as `EngineMetrics` records them, which end when the tick is
-enqueued, not done (ROADMAP C5); `serve_tick_*` are the scheduler's own
-spans, gather to scatter, which wait for the tick's output.  The burst
+spans as `EngineMetrics` records them: on a card its span on the card's
+clock (copy in, replay, clone), on the CPU the host's time for the tick;
+`serve_tick_*` are the scheduler's own spans, gather to scatter, which
+wait for the tick's output.  The burst
 latency includes completion either way.
 """
 
@@ -294,8 +295,9 @@ def run_probe(model: str = MODEL_DIR, sessions: int = 4, seconds: float = 20.0,
         "graph_warmup_ticks": host.engine.counters.get("graph_warmup_ticks", 0),
         "note": ("Burst latency through the whole serving stack (client push -> "
                  "resampler -> SPSC ring -> scheduler tick -> compiled engine tick -> ring -> "
-                 "pull), detection - push per burst.  scheduler.dispatch_tick_* are enqueue "
-                 "spans (C5); serve_tick_* wait for the tick's output."),
+                 "pull), detection - push per burst.  scheduler.dispatch_tick_* are the "
+                 "engine's spans (on a card the device's); serve_tick_* wait for the tick's "
+                 "output."),
     }
 
 

@@ -1496,7 +1496,7 @@ def serve_golden_phase(device, card):
     log("serve_golden", t0, model="klatt8", capacity=golden.SERVE_CAPACITY,
         ticks=golden.SERVE_TICKS, graph_warmup_ticks=seen.get("graph_warmup_ticks", 0),
         launches=counts, vs_golden=devs, tol=golden.F32_ATOL,
-        serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_enqueue_p50_ms=seen["tick_p50_ms"],
+        serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_tick_p50_ms=seen["tick_p50_ms"],
         nvidia_smi=card)
     return counts["float32"], got
 
@@ -1555,7 +1555,7 @@ def serve_pipeline_phase(device, card, plain):
     log("serve_pipeline", t0, model="klatt8", ticks=golden.SERVE_TICKS + 6,
         graph_warmup_ticks=warmup, launches=counts,
         max_abs_diff_vs_plain_one_tick_later=diff, tol=PIPELINE_TOL,
-        serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_enqueue_p50_ms=seen["tick_p50_ms"],
+        serve_tick_p50_ms=seen["serve_tick_p50_ms"], engine_tick_p50_ms=seen["tick_p50_ms"],
         nvidia_smi=card)
     return counts["float32"]
 
@@ -1746,7 +1746,7 @@ def serve_tcp_phase(device, card, dtype):
         serve_ticks_per_s=metrics.get("serve_ticks_per_s"),
         idle_serve_tick_p50_ms=idle["serve_tick_p50_ms"], idle_ticks=idle["ticks"],
         ticks_per_s_with_clients=(metrics["ticks"] - idle["ticks"]) / window_s,
-        engine_enqueue_p50_ms=metrics["tick_p50_ms"], engine_underruns=metrics["underruns"],
+        engine_tick_p50_ms=metrics["tick_p50_ms"], engine_underruns=metrics["underruns"],
         session_underruns=metrics["session_underruns"],
         session_dropped_in=metrics["session_dropped_in"],
         session_dropped_out=metrics["session_dropped_out"], clients_report=report,
@@ -2871,7 +2871,7 @@ def serve_soak_phase(device, card, by_path):
         log("serve_soak", t0, entry=key, frames_per_tick=fpt, pipeline=pipeline,
             clients=SOAK_CLIENTS, duration_s=SOAK_SECONDS, ok=rep["ok"],
             tick_cadence_hz=rep["tick_cadence_hz"], serve_tick_p50_ms=rep["serve_tick_p50_ms"],
-            serve_tick_p90_ms=rep["serve_tick_p90_ms"], engine_enqueue_p50_ms=m["tick_p50_ms"],
+            serve_tick_p90_ms=rep["serve_tick_p90_ms"], engine_tick_p50_ms=m["tick_p50_ms"],
             ticks=m["ticks"], underruns=m["underruns"],
             session_dropped_in=m["session_dropped_in"],
             session_dropped_out=m["session_dropped_out"], wall_s=rep["wall_s"],

@@ -1061,6 +1061,150 @@ def test_compiled_training_on_the_card_matches_the_golden_file(cuda_device):
         assert ok, (k, v, float(want[k]), dev, bound)
 
 
+def _waited_ticks(e, ticks, seed=0, behind_sleep=False):
+    """`ticks` ticks of engine e, each waited for on the host: the outputs
+    and the host's perf_counter_ns as each wait returned.  behind_sleep
+    enqueues each tick behind a device sleep, so that the card never
+    waits for the host's launch inside the tick."""
+    import time
+
+    x = torch.as_tensor(golden.swept_sine(seed, cap=e.cfg.capacity,
+                                          ticks=ticks * e.cfg.frames_per_tick), device=e.device)
+    n = e.cfg.samples_per_tick
+    outs, waited = [], []
+    for k in range(ticks):
+        if behind_sleep:
+            torch.cuda._sleep(20_000_000)  # about 10 ms
+        outs.append(e.tick(x[:, n * k:n * (k + 1)]).cpu())
+        waited.append(time.perf_counter_ns())
+    return outs, waited
+
+
+def _all_streams(e):
+    for i in range(e.cfg.capacity):
+        e.admit()
+        e.set_control(i, "target_speaker", i % 8)
+    return e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["slots_f32", "slots_bf16"])
+def test_traced_graph_tick_equals_the_untraced_bitwise(cuda_device, config):
+    """The graph holds its stage marks either way: 20 ticks with tracing on
+    give the untraced engine's output bit for bit, every tick's stages read."""
+    untraced, traced = (_all_streams(_engine(config, cuda_device, cap=16)) for _ in range(2))
+    traced.tracing(True)
+    got, _ = _waited_ticks(traced, 20)
+    want, _ = _waited_ticks(untraced, 20)
+    dump = traced.tracer.dump()
+    assert traced.tracing(False)["drift_ns"] is not None
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    names = [row[1] for row in dump["spans"]]
+    assert names.count("engine.device") == 20 and names.count("head") == 20
+    assert dump["counters"]["stage_reads_missed"] == 0
+    assert untraced.tracer.dump()["spans"] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames_per_tick", [1, 3])
+def test_device_stages_fill_the_engine_span_on_the_shared_clock(cuda_device, frames_per_tick):
+    """A tick's stage intervals sum to its engine span (the event pair
+    around copy in, replay and clone) within 3 % or 30 us; on the host's
+    clock each stage of tick n starts after tick n's engine.launch starts
+    and ends before the host's wait for tick n returns.  Each tick waits
+    behind a device sleep, so the card never waits inside it for the
+    host's launch (that wait is graph_in's: the next test)."""
+    e = _all_streams(_engine("slots_bf16", cuda_device, cap=256,
+                             frames_per_tick=frames_per_tick))
+    _waited_ticks(e, 3)
+    e.tracing(True)
+    _, waited = _waited_ticks(e, 10, seed=1, behind_sleep=True)
+    from beatrice_vst_tpu_torch.runtime.metrics import SPAN_FIELDS, STAGES
+
+    spans = [dict(zip(SPAN_FIELDS, row)) for row in e.tracer.dump()["spans"]]
+    e.tracing(False)
+    ticks = sorted({s["tick"] for s in spans})
+    assert len(ticks) == 10
+    for i, tick in enumerate(ticks):
+        group = [s for s in spans if s["tick"] == tick]
+        device = next(s for s in group if s["name"] == "engine.device")
+        launch = next(s for s in group if s["name"] == "engine.launch")
+        stages = [s for s in group if s["parent"] == device["id"] and s["name"] in STAGES]
+        total = sum(s["end_ns"] - s["start_ns"] for s in stages)
+        span = device["end_ns"] - device["start_ns"]
+        assert abs(span - total) <= max(0.03 * span, 30_000), (tick, span, total)
+        for s in stages:
+            assert launch["start_ns"] < s["start_ns"] <= s["end_ns"] < waited[i], (tick, s)
+
+
+@pytest.mark.cuda
+def test_the_cards_wait_for_the_launch_is_named_graph_in(cuda_device):
+    """Ticked with nothing in front, the card reaches a tick's start event
+    before the host has launched the replay and waits inside the engine
+    span, outside every stage.  The span's parts tile it (graph_in, the
+    stages in order, graph_out), and graph_in, which holds that wait, is
+    no longer than the host's engine.launch (with 50 us for the card to
+    start the graph): the stages and graph_in account for the span."""
+    from beatrice_vst_tpu_torch.runtime.metrics import GAPS, SPAN_FIELDS, STAGES
+
+    e = _all_streams(_engine("slots_bf16", cuda_device, cap=256))
+    _waited_ticks(e, 3)
+    e.tracing(True)
+    _waited_ticks(e, 10, seed=1)
+    spans = [dict(zip(SPAN_FIELDS, row)) for row in e.tracer.dump()["spans"]]
+    e.tracing(False)
+    ticks = sorted({s["tick"] for s in spans})
+    assert len(ticks) == 10
+    waits = []
+    for tick in ticks:
+        group = [s for s in spans if s["tick"] == tick]
+        device = next(s for s in group if s["name"] == "engine.device")
+        launch = next(s for s in group if s["name"] == "engine.launch")
+        parts = sorted((s for s in group if s["parent"] == device["id"]),
+                       key=lambda s: (s["start_ns"], s["id"]))
+        names = [s["name"] for s in parts]
+        assert names[0] == GAPS[0] and names[-1] == GAPS[1], names
+        assert set(names[1:-1]) <= set(STAGES)
+        assert parts[0]["start_ns"] == device["start_ns"]
+        assert parts[-1]["end_ns"] == device["end_ns"]
+        for a, b in zip(parts, parts[1:]):
+            assert a["end_ns"] == b["start_ns"], (a, b)
+        wait = parts[0]["end_ns"] - parts[0]["start_ns"]
+        host = launch["end_ns"] - launch["start_ns"]
+        assert 0 <= wait <= host + 50_000, (tick, wait, host)
+        waits.append(wait)
+    print("graph_in us", [w // 1000 for w in waits])
+
+
+@pytest.mark.cuda
+def test_underruns_count_a_tick_over_its_budget_on_the_cards_clock(cuda_device):
+    """tick_p50_ms is the engine's span on the card (an event pair), not
+    the host's enqueue; a tick held some 50 ms on the card is one underrun."""
+    e = _all_streams(_engine("slots_bf16", cuda_device, cap=8))
+    _waited_ticks(e, 5)
+    snap = e.metrics_snapshot()
+    assert snap["tick_clock"] == "cuda_events" and snap["underruns"] == 0
+    e.tracing(True)
+    _waited_ticks(e, 5)
+    device = [(row[3] - row[2]) * 1e-6 for row in e.tracer.dump()["spans"]
+              if row[1] == "engine.device"]
+    e.tracing(False)
+    assert e.metrics_snapshot()["tick_p50_ms"] == pytest.approx(float(np.median(device)),
+                                                                rel=0.05)
+    graph = e._graph
+
+    def held(x, **kw):
+        torch.cuda._sleep(100_000_000)  # 50 ms at 2 GHz
+        return graph(x, **kw)
+
+    e._graph = held
+    _waited_ticks(e, 1)
+    e._graph = graph
+    _waited_ticks(e, 1)
+    assert e.metrics_snapshot()["underruns"] == 1
+
+
 @pytest.mark.cuda
 def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
     """A synchronising step (a copy to the host) warms up, as eager code
