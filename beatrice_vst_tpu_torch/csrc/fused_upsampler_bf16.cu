@@ -1,6 +1,8 @@
-// Fused vocoder upsampler head, one 10 ms frame (T = 1) per stream, bf16
+// Fused vocoder upsampler head, a chunk of T 10 ms frames per stream, bf16
 // form on the tensor cores: mma.sync from shared memory, bf16 activations,
-// weights staged by asynchronous copies.
+// weights staged by asynchronous copies.  Two entry points share one body:
+// fused_upsampler_bf16_launch (T = 1, one frame a launch) and
+// fused_upsampler_bf16_chunk_launch (any T, the chunk path).
 //
 // Replaces the TPU kernel beatrice_vst_tpu/models/pallas_upsampler.py:203
 // fused_upsample (pl.pallas_call at :260, with _kernel :115, _stage :83 and
@@ -82,6 +84,59 @@
 // Deterministic: no atomics, every sum in a fixed order, so two launches on
 // the same inputs are bitwise equal.
 // Not used: wgmma (64-row tiles; stage 1 has 16 rows a tile of 16 streams).
+//
+// T frames (the chunk entry point).  A cluster runs frames one after
+// another through the same per-frame body (the same roundings and sum
+// orders, so a chunk equals T chained one-frame launches bitwise), with
+// the carries on chip between frames:
+//  - stage 1's carry is the frame features of the two previous frames, so
+//    frame t's seq1 is rows t - 2, t - 1, t of h (the carry state[0] before
+//    frame 0), loaded while the previous frame's final conv runs;
+//  - stage 2's carry is stage 1's output of the previous frame at rho 2
+//    and 3, computed by ranks 4-7: they keep it in two registers a thread
+//    and push it into every CTA's seq2 rows 0, 1 with the frame's own
+//    output (the cluster barrier that orders the pushes is arrived at once
+//    the CTA is done with its seq2 region's other use, seq4);
+//  - the own streams' carries of stages 3, 4 and the final conv (512, 256
+//    and 128 bytes a CTA) are one word a thread (threads 0-127, 128-191,
+//    192-223), saved after the rows are written and put back where the
+//    one-frame kernel loads them from state[].
+//  Only the frame's last block writes new_state; the weights stream through
+//  the ring again for every frame (from L2: 1.1 MB for the whole card), the
+//  next frame's first three chunks issued as the slots free up.
+//  A frame is a function of its own (chunk_frame, not inlined) that the
+//  loop calls: inlined, what a frame derives was hoisted out of the loop
+//  and held across frames, and spilled (460-676 bytes a thread at the 128
+//  registers two CTAs an SM allow, against 68 bytes in chunk_frame).
+// Frames per GEMM, Tc: 1.  A Tc-frame tile would take seq1 of 16 (Tc + 2)
+// rows of 512 bytes and seq2 of 16 (4 Tc + 2) rows of 256 bytes in every
+// CTA, and stage 4's input 80 Tc + 2 rows a stream: at Tc = 2, 32 KB +
+// 40 KB beside the 64 KB ring, over the 113 KB a CTA has at two CTAs an SM
+// (the kernel already uses all but 880 bytes of it); at one CTA an SM
+// (227 KB) Tc = 4 would fit and give wgmma its 64 rows, but half the CTAs
+// that hide each other's latency.  So each frame is the one-frame GEMMs,
+// and a chunk spares T - 1 launches and prologues and the carries' round
+// trips, and reads the chunk's inputs where they lie.  What it buys over
+// T one-frame launches (on contiguous copies of each frame's inputs, the
+// copies not timed; H100 SXM): B = 1, T = 256 0.240 ms against 4.70 (the
+// frame blocks below); B = 256, T = 25 0.635 against 0.624; B = 4,096,
+// T = 25 5.60 against 5.23, 7 % slower with the card full (not traced
+// further: the per-frame hand-offs and chunk_frame's spills are there).
+// Frame blocks.  ceil(B / 16) tiles fill the card only from some 480
+// streams on (30 clusters at once), so the frame axis is split as well:
+// the launch takes `block_frames`, and cluster (tile, k) runs frames
+// [k F, k F + F) of its tile, after one warm-up frame k F - 1 whose audio
+// and carries it does not store.  The warm-up frame's carries of stages 2
+// to 4 and the final conv come from state[] (any finite values), which
+// reach none of the rows that become carries: stage 2's output rows 10-19
+// read only its input rows 2-5 (stage 1's output), stage 3's rows 48-79
+// only those, stage 4's rows 150-239 only stage 3's 48-79, and each carry
+// is the last two rows; its seq1 rows come from h.  So the carries
+// entering frame k F are those of a run from frame 0, bit for bit.
+// Bound at T frames (fused_upsampler.bound_ms(b, bfloat16, frames=T)): the
+// operations and the per-stream bytes scale with T, the weights do not;
+// at B = 4,096 and T = 25, 0.375 TFLOP (0.38 ms at 989 TFLOP/s) and
+// 1.44 GB, 1.27 GB of them f32 source features (0.43 ms at 3.35 TB/s).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -99,9 +154,9 @@ using bf16 = __nv_bfloat16;
 // weights.
 template <typename T>
 struct FusedUpsamplerArgs {
-  const T* h;                 // [B, 1, 256]
+  const T* h;                 // [B, F, 256] (F frames: 1, or T at the chunk entry point)
   const T* state[5];          // [B,2,256] [B,2,128] [B,2,64] [B,2,32] [B,2,16]
-  const float* src[4];        // [B,4,9] [B,20,9] [B,80,9] [B,240,9]
+  const float* src[4];        // [B,4F,9] [B,20F,9] [B,80F,9] [B,240F,9]
   const T* conv_w[4];         // [3,256,512] [3,128,320] [3,64,128] [3,32,48]
   const float* conv_b[4];     // [512] [320] [128] [48]
   const T* src_w[4];          // [9, C_out]
@@ -109,7 +164,7 @@ struct FusedUpsamplerArgs {
   const float* log_alpha[4];  // [C_out]
   const T* final_w;           // [3, 16, 1]
   const float* final_b;       // [1]
-  float* audio;               // [B, 240]
+  float* audio;               // [B, 240F]
   T* new_state[5];            // shapes of state
 };
 
@@ -358,6 +413,43 @@ __device__ __forceinline__ void copy_units(uint32_t dst, const float* __restrict
   for (int i = threadIdx.x; i < units; i += kThreads) cp_async16(dst + 16 * i, g + 4 * i);
 }
 
+// cp.async of `units` 16-byte units of each of ns streams, stream s from
+// g + s * stride floats, to dst + 16 * units * s (a frame's rows of
+// source features [B, F * rows, 9]: one run of units a stream)
+__device__ __forceinline__ void copy_streams(uint32_t dst, const float* __restrict__ g,
+                                             size_t stride, int ns, int units) {
+  for (int i = threadIdx.x; i < ns * units; i += kThreads) {
+    const int s = i / units;
+    cp_async16(dst + 16 * i, g + s * stride + 4 * (i - s * units));
+  }
+}
+
+// cp.async of frame fr's seq1 for the tile's 16 streams: rows 0, 1, 2 are
+// the frame features of frames fr - 2, fr - 1, fr of h [B, F, 256], frames
+// -2 and -1 being the carry state[0]; streams past `batch` are zeros.
+__device__ __forceinline__ void load_seq1(uint32_t buf, const FusedUpsamplerArgs<bf16>& p,
+                                          int tile0, int batch, int frames, int fr) {
+  for (int i = threadIdx.x; i < kTile * 3 * 32; i += kThreads) {
+    const int u = i & 31, row = (i >> 5) % 3, s = i / 96;
+    const int b = tile0 + s;
+    const bool valid = b < batch;
+    const size_t bb = valid ? b : 0;
+    const int x = fr - 2 + row;
+    const bf16* g = x >= 0 ? p.h + (bb * frames + x) * 256 : p.state[0] + (bb * 2 + x + 2) * 256;
+    cp_async16(buf + Seq1::offset(s, row, u), g + 8 * u, valid);
+  }
+}
+
+// Word w of the carry rows row0, row0 + 1 of both own streams in buffer L
+// of C channels (16 C / 8 words: w = 4 unit + word, units stream-major):
+// what a thread keeps of an own stream's carry between frames.
+template <class L, int C>
+__device__ __forceinline__ uint32_t* carry_word(unsigned char* buf, int row0, int w) {
+  constexpr int U = C / 8;
+  const int unit = w >> 2, u = unit % U, row = (unit / U) & 1, s = unit / (2 * U);
+  return reinterpret_cast<uint32_t*>(buf + L::offset(s, row0 + row, u) + 4 * (w & 3));
+}
+
 // The tensor maps of the four conv weights, [3 C_in, N] bf16 with the box
 // of a chunk (encode_maps).
 struct WeightMaps {
@@ -421,61 +513,56 @@ __device__ __forceinline__ void issue_chunk(uint32_t ring, uint32_t bars, int i,
 // .x4.trans / .x2.trans: matrices 0 and 2 rows 0-7, matrices 1 and 3 rows 8-15
 __device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
-fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
-                            const __grid_constant__ WeightMaps maps, int batch) {
+// Where a frame of a tile lies: the streams in the arguments, the frames a
+// stream has there, the frame, the frames the cluster ran before it, the
+// tile's first stream, the first frame whose audio is stored (the ones
+// before are a block's warm-up frame), whether another frame follows, and
+// whether this one writes new_state.
+struct FrameOf {
+  int batch, frames, fr, n, tile0, f_lo;
+  bool more, store_state;
+};
+
+// One frame of a tile of 16 streams: stages 1-4 and the final conv, after
+// upsample_tile's prologue.  In a chunk (kChunk) prev2 and keep carry ranks
+// 4-7's stage-1 output at rho 2, 3 (the next frame's stage-2 carry rows)
+// and one word of an own stream's carry of stage 3 (threads 0-127), 4
+// (128-191) or the final conv (192-223) to the next frame.
+template <bool kChunk>
+__device__ __forceinline__ void tile_frame(const FusedUpsamplerArgs<bf16>& p,
+                                           const WeightMaps& maps, const FrameOf f,
+                                           uint2& prev2, uint32_t& keep) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t ring = sb + kRing, bars = sb + kBars;
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = static_cast<int>(cluster.block_rank()), tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment: row group, column pair
-  const int tile0 = (blockIdx.x / kCluster) * kTile;  // first stream of the tile
-  const int own0 = tile0 + kOwn * rank;               // first stream this CTA owns
+  const int batch = f.batch, F = f.frames, fr = f.fr, n = f.n, tile0 = f.tile0;
+  const bool first = n == 0, more = f.more, store_state = f.store_state;
+  const int own0 = tile0 + kOwn * rank;  // first stream this CTA owns
   const int tile_n = min(kTile, batch - tile0);
   const int own_n = min(kOwn, batch - own0);
 
-  // every CTA of the cluster arrives now and waits before its first store
-  // into another's shared memory, so that all have started by then
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-
-  // the weight ring: a barrier per slot, chunks 0-2 in flight (the
-  // swizzle of the slots needs 1024-byte alignment)
-  if (tid == 0) {
-    if (sb & 1023) __trap();
-#pragma unroll
-    for (int k = 0; k < 4; ++k) mbar_init(bars + 8 * k, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-#pragma unroll
-    for (int i = 0; i < 3; ++i) issue_chunk(ring, bars, i, maps, rank);
-  }
-  // seq1 (stage-1 carry and h), seq2's carry rows, the final conv
-  for (int i = tid; i < kTile * 32; i += kThreads) {
-    const int u = i & 31, s = i >> 5, b = tile0 + s;
-    cp_async16(sb + kSeq1 + Seq1::offset(s, 2, u), p.h + (size_t)(b < batch ? b : 0) * 256 + 8 * u,
-               b < batch);
-  }
-  load_carry<Seq1, 256>(sb + kSeq1, p.state[0], 0, 0, tile0, kTile, batch);
-  load_carry<Seq2, 128>(sb + kSeq2, p.state[1], 0, 0, tile0, kTile, batch);
-  if (tid < 6)
-    cp_async16(sb + kConst + 16 * tid, p.final_w + 8 * tid);
-  else if (tid == 6)
-    cp_async4(sb + kConst + 96, p.final_b);
-  cp_async_commit();
-  __syncthreads();  // the barriers are initialised before anyone waits on them
-
-  // Before reading chunk i: wait for its barrier (chunks i + 1 and i + 2 may
-  // still be in flight; a slot's barrier completes its phase (i / 4) % 2
-  // for chunk i), and for every warp to be done with chunk i - 1, whose slot
-  // then takes chunk i + 3.  Steps 0 and 11 also wait for the cp.async
+  // Before reading chunk i of the frame: wait for its barrier (chunks
+  // i + 1 and i + 2 may still be in flight; a slot takes 3 chunks a
+  // frame, so its barrier completes phase (i / 4 + n) % 2 for chunk i),
+  // and for every warp to be done with chunk i - 1, whose slot then takes
+  // chunk i + 3 (or the next frame's chunk i - 9: 1 and 2 here, 0 once
+  // seqf has left slot 0).  Steps 0 and 11 also wait for the cp.async
   // copies that their stage reads (seq1; seq4's carry and src4).
   auto ring_step = [&](int i, auto&& also) {
     if (i == 0 || i == 11) cp_async_wait_all();
-    mbar_wait(bars + 8 * (i & 3), (i >> 2) & 1);
+    mbar_wait(bars + 8 * (i & 3), ((i >> 2) + n) & 1);
     __syncthreads();
     also();
-    if (tid == 0 && i + 3 < kChunks) issue_chunk(ring, bars, i + 3, maps, rank);
+    if (tid == 0) {
+      if (i + 3 < kChunks)
+        issue_chunk(ring, bars, i + 3, maps, rank);
+      else if (kChunk && more && i + 3 > kChunks)
+        issue_chunk(ring, bars, i + 3 - kChunks, maps, rank);
+    }
   };
 
   // ---- stage 1: [16, 768] . [768, 64 columns of this rank] -------------
@@ -494,7 +581,7 @@ fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
     float acc[4][4] = {};
     auto chunk = [&](int i) {
       ring_step(i, [&] {
-        if (i == 0)  // seq1 has landed: the new carry is its rows 1, 2
+        if (i == 0 && store_state)  // seq1 has landed: the new carry is its rows 1, 2
           store_carry<Seq1, 256>(p.new_state[0], smem + kSeq1, 1, kOwn * rank, own0, kOwn,
                                  batch);
       });
@@ -525,7 +612,8 @@ fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int b = tile0 + g + 8 * h;
-        const float* src = p.src[0] + ((size_t)(b < batch ? b : 0) * 4 + rho) * kSrc;
+        const float* src =
+            p.src[0] + (((size_t)(b < batch ? b : 0) * F + fr) * 4 + rho) * kSrc;
 #pragma unroll
         for (int k = 0; k < kSrc; ++k) f[h][k] = b < batch ? __ldg(src + k) : 0.0f;
       }
@@ -567,7 +655,20 @@ fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 #pragma unroll
     for (int r = 0; r < kCluster; ++r)
-      *reinterpret_cast<uint2*>(cluster.map_shared_rank(smem, r) + off) = out;
+      *reinterpret_cast<uint2*>(cluster.map_shared_rank(smem, r) + off) =
+          out;
+    if constexpr (kChunk) {
+      if (rho >= 2) {  // the previous frame's rows 4, 5 are this frame's carry rows 0, 1
+        if (!first) {
+          const int coff = kSeq2 + Seq2::channel(es, rho - 2, cbase + en);
+#pragma unroll
+          for (int r = 0; r < kCluster; ++r)
+            *reinterpret_cast<uint2*>(cluster.map_shared_rank(smem, r) +
+                                      coff) = prev2;
+        }
+        prev2 = out;
+      }
+    }
   }
   cluster.sync();  // seq2 complete in every CTA
 
@@ -583,8 +684,8 @@ fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
     for (int nt = 0; nt < 3; ++nt) {
       if (nt < nn) {
         const int n0 = 40 * rank + 8 * (3 * ns + nt);  // first column of the n tile
-        const int n = n0 + 2 * t4;
-        cols[nt].load(p.conv_b[1], p.src_b[1], p.log_alpha[1], n, n & 63);
+        const int c = n0 + 2 * t4;
+        cols[nt].load(p.conv_b[1], p.src_b[1], p.log_alpha[1], c, c & 63);
         src_b_frag(sw[nt], p.src_w[1], 64, n0 & 63, g, t4);
       }
     }
@@ -592,11 +693,24 @@ fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
     for (int i = 6; i < 8; ++i) {
       ring_step(i, [&] {
         if (i == 6) {
-          store_carry<Seq2, 128>(p.new_state[1], smem + kSeq2, 4, kOwn * rank, own0, kOwn, batch);
+          if (store_state)
+            store_carry<Seq2, 128>(p.new_state[1], smem + kSeq2, 4, kOwn * rank, own0, kOwn,
+                                   batch);
           // for stage 2's epilogue and stage 3: source features and seq3's carry
-          copy_units(sb + kSrc2, p.src[1] + (size_t)tile0 * 20 * kSrc, max(tile_n, 0) * 45);
-          load_carry<Seq3, 64>(sb + kSeq3, p.state[2], 0, 0, own0, kOwn, batch);
-          copy_units(sb + kSrc3, p.src[2] + (size_t)own0 * 80 * kSrc, max(own_n, 0) * 180);
+          if constexpr (kChunk) {
+            copy_streams(sb + kSrc2, p.src[1] + ((size_t)tile0 * F + fr) * 20 * kSrc,
+                         (size_t)F * 20 * kSrc, tile_n, 45);
+            if (first)
+              load_carry<Seq3, 64>(sb + kSeq3, p.state[2], 0, 0, own0, kOwn, batch);
+            else if (tid < 128)
+              *carry_word<Seq3, 64>(smem + kSeq3, 0, tid) = keep;
+            copy_streams(sb + kSrc3, p.src[2] + ((size_t)own0 * F + fr) * 80 * kSrc,
+                         (size_t)F * 80 * kSrc, max(own_n, 0), 180);
+          } else {
+            copy_units(sb + kSrc2, p.src[1] + (size_t)tile0 * 20 * kSrc, max(tile_n, 0) * 45);
+            load_carry<Seq3, 64>(sb + kSeq3, p.state[2], 0, 0, own0, kOwn, batch);
+            copy_units(sb + kSrc3, p.src[2] + (size_t)own0 * 80 * kSrc, max(own_n, 0) * 180);
+          }
           cp_async_commit();
         }
       });
@@ -639,197 +753,328 @@ fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
         for (int h = 0; h < 2; ++h) {
           const int mm = m0 + 8 * h, s = mm >> 2, t = mm & 3;
           const int off = kSeq3 + Seq3::channel(s & 1, 2 + 5 * t + rho, c);
-          *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(smem, s >> 1) + off) =
+          unsigned char* owner = cluster.map_shared_rank(smem, s >> 1);
+          *reinterpret_cast<uint32_t*>(owner + off) =
               cols[nt].out(acc[nt][2 * h], acc[nt][2 * h + 1]);
         }
       }
     }
   }
-  cluster.sync();  // seq3 complete; no CTA writes another's shared memory after this
-  if (own0 >= batch) {  // wait for the copies in flight (stage 3's weights) first
-    cp_async_wait_all();
+  cluster.sync();  // seq3 complete; no CTA writes another's shared memory in this frame now
+  if (own0 >= batch) {  // no stream of its own: wait for the copies in flight (stage 3's weights)
+    if constexpr (kChunk) {
+      for (int i = 8; i < kChunks; ++i) ring_step(i, [] {});
+    } else {
+      cp_async_wait_all();
 #pragma unroll
-    for (int i = 8; i < 11; ++i) mbar_wait(bars + 8 * (i & 3), (i >> 2) & 1);
-    return;
-  }
-
-  // ---- stage 3: [2 x 20, 192] . [192, 128] -----------------------------
-  // warp w: n tiles 2 w, 2 w + 1 (channels 16 w .. + 15 of rho = w / 2),
-  // all three m tiles (rows 40-47 repeat row 39 and are not stored)
-  {
-    const int rho = warp >> 1;
-    Cols cols[2];
-    uint32_t sw[2][2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int n0 = 16 * warp + 8 * q;
-      cols[q].load(p.conv_b[2], p.src_b[2], p.log_alpha[2], n0 + 2 * t4, (n0 & 31) + 2 * t4);
-      src_b_frag(sw[q], p.src_w[2], 32, n0 & 31, g, t4);
+      for (int i = 8; i < 11; ++i) mbar_wait(bars + 8 * (i & 3), (i >> 2) & 1);
+      return;
     }
-    float acc[3][2][4] = {};
-    for (int i = 8; i < 11; ++i) {
-      ring_step(i, [&] {
-        if (i == 8) {
-          store_carry<Seq3, 64>(p.new_state[2], smem + kSeq3, 20, 0, own0, kOwn, batch);
-          // for stage 4: seq4's carry and the source features
-          load_carry<Seq4, 32>(sb + kSeq4, p.state[3], 0, 0, own0, kOwn, batch);
-          copy_units(sb + kSrc4a, p.src[3] + (size_t)own0 * kOut * kSrc, 540);
-          if (own_n > 1)
-            copy_units(sb + kSrc4b, p.src[3] + (size_t)(own0 + 1) * kOut * kSrc, 540);
-          cp_async_commit();
-        }
-      });
-      const uint32_t w = ring + (i & 3) * kSlot;
-      const int j = i - 8;  // the chunk is tap j
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int kr = 16 * ks + b_row(lane);
-        const int u = 2 * warp + (lane >> 4);
-        uint32_t b[4];
-        ldsm_x4_t(b, w + (u >> 3) * kHalfSlot + (kr * 8 + ((u & 7) ^ (kr & 7))) * 16);
-#pragma unroll
-        for (int mt = 0; mt < 3; ++mt) {
-          const int m = min(16 * mt + (lane & 15), 39), s = m / 20, t = m - 20 * s;
-          uint32_t a[4];
-          ldsm_x4(a, sb + kSeq3 + Seq3::offset(s, t + j, 2 * ks + (lane >> 4)));
-          mma(acc[mt][0], a, b[0], b[1]);
-          mma(acc[mt][1], a, b[2], b[3]);
-        }
-      }
-    }
-    cols[0].ready();
-    cols[1].ready();
-    const float* src = reinterpret_cast<const float*>(smem + kSrc3);  // [2][80][9]
-#pragma unroll
-    for (int mt = 0; mt < 3; ++mt) {
-      const int m0 = min(16 * mt + g, 39), m1 = min(16 * mt + g + 8, 39);
-      const int s0 = m0 / 20, s1 = m1 / 20;
-      uint32_t a[4];
-      src_a_frag(a, src + (s0 * 80 + (m0 - 20 * s0) * 4 + rho) * kSrc,
-                 src + (s1 * 80 + (m1 - 20 * s1) * 4 + rho) * kSrc, t4);
+  } else {
+    // ---- stage 3: [2 x 20, 192] . [192, 128] ---------------------------
+    // warp w: n tiles 2 w, 2 w + 1 (channels 16 w .. + 15 of rho = w / 2),
+    // all three m tiles (rows 40-47 repeat row 39 and are not stored)
+    {
+      const int rho = warp >> 1;
+      Cols cols[2];
+      uint32_t sw[2][2];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        mma(acc[mt][q], a, sw[q][0], sw[q][1]);
-        const int c = ((16 * warp + 8 * q) & 31) + 2 * t4;
+        const int n0 = 16 * warp + 8 * q;
+        cols[q].load(p.conv_b[2], p.src_b[2], p.log_alpha[2], n0 + 2 * t4, (n0 & 31) + 2 * t4);
+        src_b_frag(sw[q], p.src_w[2], 32, n0 & 31, g, t4);
+      }
+      float acc[3][2][4] = {};
+      for (int i = 8; i < 11; ++i) {
+        ring_step(i, [&] {
+          if (i == 8) {
+            if (store_state)
+              store_carry<Seq3, 64>(p.new_state[2], smem + kSeq3, 20, 0, own0, kOwn, batch);
+            else if (kChunk && tid < 128)
+              keep = *carry_word<Seq3, 64>(smem + kSeq3, 20, tid);
+            // for stage 4: seq4's carry and the source features
+            if (!kChunk || first)
+              load_carry<Seq4, 32>(sb + kSeq4, p.state[3], 0, 0, own0, kOwn, batch);
+            else if (tid >= 128 && tid < 192)
+              *carry_word<Seq4, 32>(smem + kSeq4, 0, tid - 128) = keep;
+            const float* src4 = p.src[3] + ((size_t)own0 * F + fr) * kOut * kSrc;
+            copy_units(sb + kSrc4a, src4, 540);
+            if (own_n > 1) copy_units(sb + kSrc4b, src4 + (size_t)F * kOut * kSrc, 540);
+            cp_async_commit();
+          }
+        });
+        const uint32_t w = ring + (i & 3) * kSlot;
+        const int j = i - 8;  // the chunk is tap j
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = 16 * mt + g + 8 * h;
-          if (m < 40) {
-            const int s = m / 20, t = m - 20 * s;
-            *reinterpret_cast<uint32_t*>(smem + kSeq4 + Seq4::channel(s, 2 + 4 * t + rho, c)) =
-                cols[q].out(acc[mt][q][2 * h], acc[mt][q][2 * h + 1]);
+        for (int ks = 0; ks < 4; ++ks) {
+          const int kr = 16 * ks + b_row(lane);
+          const int u = 2 * warp + (lane >> 4);
+          uint32_t b[4];
+          ldsm_x4_t(b, w + (u >> 3) * kHalfSlot + (kr * 8 + ((u & 7) ^ (kr & 7))) * 16);
+#pragma unroll
+          for (int mt = 0; mt < 3; ++mt) {
+            const int m = min(16 * mt + (lane & 15), 39), s = m / 20, t = m - 20 * s;
+            uint32_t a[4];
+            ldsm_x4(a, sb + kSeq3 + Seq3::offset(s, t + j, 2 * ks + (lane >> 4)));
+            mma(acc[mt][0], a, b[0], b[1]);
+            mma(acc[mt][1], a, b[2], b[3]);
+          }
+        }
+      }
+      cols[0].ready();
+      cols[1].ready();
+      const float* src = reinterpret_cast<const float*>(smem + kSrc3);  // [2][80][9]
+#pragma unroll
+      for (int mt = 0; mt < 3; ++mt) {
+        const int m0 = min(16 * mt + g, 39), m1 = min(16 * mt + g + 8, 39);
+        const int s0 = m0 / 20, s1 = m1 / 20;
+        uint32_t a[4];
+        src_a_frag(a, src + (s0 * 80 + (m0 - 20 * s0) * 4 + rho) * kSrc,
+                   src + (s1 * 80 + (m1 - 20 * s1) * 4 + rho) * kSrc, t4);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          mma(acc[mt][q], a, sw[q][0], sw[q][1]);
+          const int c = ((16 * warp + 8 * q) & 31) + 2 * t4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = 16 * mt + g + 8 * h;
+            if (m < 40) {
+              const int s = m / 20, t = m - 20 * s;
+              *reinterpret_cast<uint32_t*>(smem + kSeq4 + Seq4::channel(s, 2 + 4 * t + rho, c)) =
+                  cols[q].out(acc[mt][q][2 * h], acc[mt][q][2 * h + 1]);
+            }
           }
         }
       }
     }
-  }
 
-  // ---- stage 4: [2 x 80, 96] . [96, 48] --------------------------------
-  // warp w: n tiles 3 (w & 1) .. + 2, m tiles w / 2, w / 2 + 4, w / 2 + 8 (< 10)
-  ring_step(11, [&] {
-    store_carry<Seq4, 32>(p.new_state[3], smem + kSeq4, 80, 0, own0, kOwn, batch);
-    load_carry<SeqF, 16>(sb + kSeqF, p.state[4], 0, 0, own0, kOwn, batch);
-    cp_async_commit();
-  });
-  {
-    const int nh = warp & 1, mt0 = warp >> 1;
-    Cols cols[3];
-    uint32_t sw[3][2];
+    // ---- stage 4: [2 x 80, 96] . [96, 48] ------------------------------
+    // warp w: n tiles 3 (w & 1) .. + 2, m tiles w / 2, w / 2 + 4, w / 2 + 8 (< 10)
+    ring_step(11, [&] {
+      if (store_state)
+        store_carry<Seq4, 32>(p.new_state[3], smem + kSeq4, 80, 0, own0, kOwn, batch);
+      else if (kChunk && tid >= 128 && tid < 192)
+        keep = *carry_word<Seq4, 32>(smem + kSeq4, 80, tid - 128);
+      if (!kChunk || first)
+        load_carry<SeqF, 16>(sb + kSeqF, p.state[4], 0, 0, own0, kOwn, batch);
+      else if (tid >= 192 && tid < 224)
+        *carry_word<SeqF, 16>(smem + kSeqF, 0, tid - 192) = keep;
+      cp_async_commit();
+    });
+    {
+      const int nh = warp & 1, mt0 = warp >> 1;
+      Cols cols[3];
+      uint32_t sw[3][2];
 #pragma unroll
-    for (int nt = 0; nt < 3; ++nt) {
-      const int n0 = 8 * (3 * nh + nt);
-      cols[nt].load(p.conv_b[3], p.src_b[3], p.log_alpha[3], n0 + 2 * t4, (n0 & 15) + 2 * t4);
-      src_b_frag(sw[nt], p.src_w[3], 16, n0 & 15, g, t4);
-    }
-    const uint32_t w = ring + (11 & 3) * kSlot;
-    float acc[3][3][4] = {};
+      for (int nt = 0; nt < 3; ++nt) {
+        const int n0 = 8 * (3 * nh + nt);
+        cols[nt].load(p.conv_b[3], p.src_b[3], p.log_alpha[3], n0 + 2 * t4, (n0 & 15) + 2 * t4);
+        src_b_frag(sw[nt], p.src_w[3], 16, n0 & 15, g, t4);
+      }
+      const uint32_t w = ring + (11 & 3) * kSlot;
+      float acc[3][3][4] = {};
 #pragma unroll
-    for (int ks = 0; ks < 6; ++ks) {
-      const int kr = 16 * ks + b_row(lane);
-      uint32_t b[3][2];
+      for (int ks = 0; ks < 6; ++ks) {
+        const int kr = 16 * ks + b_row(lane);
+        uint32_t b[3][2];
 #pragma unroll
-      for (int nt = 0; nt < 3; ++nt) ldsm_x2_t(b[nt], w + (kr * kW4Pitch + 3 * nh + nt) * 16);
+        for (int nt = 0; nt < 3; ++nt) ldsm_x2_t(b[nt], w + (kr * kW4Pitch + 3 * nh + nt) * 16);
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi) {
+          const int mt = mt0 + 4 * mi;
+          if (mt < 10) {
+            const int m = 16 * mt + (lane & 15), s = m / 80, t = m - 80 * s;
+            uint32_t a[4];
+            ldsm_x4(a, sb + kSeq4 + Seq4::offset(s, t + (ks >> 1), 2 * (ks & 1) + (lane >> 4)));
+#pragma unroll
+            for (int nt = 0; nt < 3; ++nt) mma(acc[mi][nt], a, b[nt][0], b[nt][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) cols[nt].ready();
 #pragma unroll
       for (int mi = 0; mi < 3; ++mi) {
         const int mt = mt0 + 4 * mi;
         if (mt < 10) {
-          const int m = 16 * mt + (lane & 15), s = m / 80, t = m - 80 * s;
-          uint32_t a[4];
-          ldsm_x4(a, sb + kSeq4 + Seq4::offset(s, t + (ks >> 1), 2 * (ks & 1) + (lane >> 4)));
+          const int m0 = 16 * mt + g;
+          // an m tile lies in one stream; its source features [240][9] f32
+          const int s0 = m0 / 80, t0 = m0 - 80 * s0, t1 = t0 + 8;
+          const float* src = reinterpret_cast<const float*>(smem + (s0 ? kSrc4b : kSrc4a));
 #pragma unroll
-          for (int nt = 0; nt < 3; ++nt) mma(acc[mi][nt], a, b[nt][0], b[nt][1]);
+          for (int nt = 0; nt < 3; ++nt) {
+            const int n0 = 8 * (3 * nh + nt), rho = n0 >> 4;
+            uint32_t a[4];
+            src_a_frag(a, src + (3 * t0 + rho) * kSrc, src + (3 * t1 + rho) * kSrc, t4);
+            mma(acc[mi][nt], a, sw[nt][0], sw[nt][1]);
+            const int c = (n0 & 15) + 2 * t4;
+            *reinterpret_cast<uint32_t*>(smem + kSeqF + SeqF::channel(s0, 2 + 3 * t0 + rho, c)) =
+                cols[nt].out(acc[mi][nt][0], acc[mi][nt][1]);
+            *reinterpret_cast<uint32_t*>(smem + kSeqF + SeqF::channel(s0, 2 + 3 * t1 + rho, c)) =
+                cols[nt].out(acc[mi][nt][2], acc[mi][nt][3]);
+          }
         }
       }
     }
+    cp_async_wait_all();
+    __syncthreads();  // seqf complete, with its carry rows
+    if (store_state)
+      store_carry<SeqF, 16>(p.new_state[4], smem + kSeqF, 240, 0, own0, kOwn, batch);
+    else if (kChunk && tid >= 192 && tid < 224)
+      keep = *carry_word<SeqF, 16>(smem + kSeqF, 240, tid - 192);
+
+    // ---- final k=3 conv, 16 -> 1 channel, and tanh: output u reads rows
+    // u .. u + 2 of seqf, 48 bf16 in a row (f32 FFMA); not for the
+    // warm-up frame ------------------------------------------------------
+    if (fr >= f.f_lo) {
+      const bf16* wf = reinterpret_cast<const bf16*>(smem + kConst);
+      const float fb = *reinterpret_cast<const float*>(smem + kConst + 96);
+      for (int i = tid; i < kOwn * kOut; i += kThreads) {
+        const int s = i / kOut, u = i - s * kOut;
+        if (own0 + s >= batch) continue;
+        const unsigned char* rows = smem + kSeqF + SeqF::offset(s, u, 0);
+        float acc = 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < 3; ++nt) cols[nt].ready();
+        for (int q = 0; q < 6; ++q) {
+          const uint4 v = *reinterpret_cast<const uint4*>(rows + 16 * q);
+          const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int mi = 0; mi < 3; ++mi) {
-      const int mt = mt0 + 4 * mi;
-      if (mt < 10) {
-        const int m0 = 16 * mt + g;
-        // an m tile lies in one stream; its source features [240][9] f32
-        const int s0 = m0 / 80, t0 = m0 - 80 * s0, t1 = t0 + 8;
-        const float* src = reinterpret_cast<const float*>(smem + (s0 ? kSrc4b : kSrc4a));
-#pragma unroll
-        for (int nt = 0; nt < 3; ++nt) {
-          const int n0 = 8 * (3 * nh + nt), rho = n0 >> 4;
-          uint32_t a[4];
-          src_a_frag(a, src + (3 * t0 + rho) * kSrc, src + (3 * t1 + rho) * kSrc, t4);
-          mma(acc[mi][nt], a, sw[nt][0], sw[nt][1]);
-          const int c = (n0 & 15) + 2 * t4;
-          *reinterpret_cast<uint32_t*>(smem + kSeqF + SeqF::channel(s0, 2 + 3 * t0 + rho, c)) =
-              cols[nt].out(acc[mi][nt][0], acc[mi][nt][1]);
-          *reinterpret_cast<uint32_t*>(smem + kSeqF + SeqF::channel(s0, 2 + 3 * t1 + rho, c)) =
-              cols[nt].out(acc[mi][nt][2], acc[mi][nt][3]);
+          for (int e = 0; e < 4; ++e) {
+            acc = fmaf(__uint_as_float(w4[e] << 16), __bfloat162float(wf[8 * q + 2 * e]), acc);
+            acc = fmaf(__uint_as_float(w4[e] & 0xffff0000u),
+                       __bfloat162float(wf[8 * q + 2 * e + 1]), acc);
+          }
         }
+        p.audio[((size_t)(own0 + s) * F + fr) * kOut + u] = tanhf(acc + fb);
       }
     }
   }
-  cp_async_wait_all();
-  __syncthreads();  // seqf complete, with its carry rows
-  store_carry<SeqF, 16>(p.new_state[4], smem + kSeqF, 240, 0, own0, kOwn, batch);
 
-  // ---- final k=3 conv, 16 -> 1 channel, and tanh: output u reads rows
-  // u .. u + 2 of seqf, 48 bf16 in a row (f32 FFMA) ------------------------
-  {
-    const bf16* wf = reinterpret_cast<const bf16*>(smem + kConst);
-    const float fb = *reinterpret_cast<const float*>(smem + kConst + 96);
-    for (int i = tid; i < kOwn * kOut; i += kThreads) {
-      const int s = i / kOut, u = i - s * kOut;
-      if (own0 + s >= batch) continue;
-      const unsigned char* rows = smem + kSeqF + SeqF::offset(s, u, 0);
-      float acc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) {
-        const uint4 v = *reinterpret_cast<const uint4*>(rows + 16 * q);
-        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc = fmaf(__uint_as_float(w4[e] << 16), __bfloat162float(wf[8 * q + 2 * e]), acc);
-          acc = fmaf(__uint_as_float(w4[e] & 0xffff0000u), __bfloat162float(wf[8 * q + 2 * e + 1]),
-                     acc);
-        }
+  // ---- the next frame (kChunk): its chunk 0 into slot 0 (seqf's), the
+  // cluster barrier that lets the others push into this CTA's seq2
+  // region (its seq4 and src4b are read), and its seq1
+  if constexpr (kChunk) {
+    if (more) {
+      __syncthreads();
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue_chunk(ring, bars, 0, maps, rank);
       }
-      p.audio[(size_t)(own0 + s) * kOut + u] = tanhf(acc + fb);
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      load_seq1(sb + kSeq1, p, tile0, batch, F, fr + 1);
+      cp_async_commit();
     }
   }
 }
 
-// Allows the kernel its dynamic shared memory on the current device (once
-// per device), with the carveout that fits two CTAs on an SM.
+// A frame of the chunk kernel, compiled apart from its loop over frames
+// (not inlined): nothing a frame derives can then be hoisted out of the
+// loop and held across frames, which at the 128 registers a thread that
+// two CTAs an SM allow spilled 460-676 bytes a thread.
+__device__ __noinline__ void chunk_frame(const FusedUpsamplerArgs<bf16>& p,
+                                         const WeightMaps& maps, const FrameOf f, uint2& prev2,
+                                         uint32_t& keep) {
+  tile_frame<true>(p, maps, f, prev2, keep);
+}
+
+// The head for one tile of 16 streams: frames [f_lo, f_hi) of them, after a
+// warm-up frame f_lo - 1 where f_lo > 0 (kChunk), or the one frame of a
+// one-frame launch (!kChunk: frames = block_frames = 1, today's launch).
+template <bool kChunk>
+__device__ __forceinline__ void upsample_tile(const FusedUpsamplerArgs<bf16>& p,
+                                              const WeightMaps& maps, int batch, int frames,
+                                              int block_frames) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sb = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t ring = sb + kRing, bars = sb + kBars;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank()), tid = threadIdx.x;
+  // frames a stream in the arguments, and this cluster's tile and frames
+  const int F = kChunk ? frames : 1;
+  const int n_blocks = kChunk ? (frames + block_frames - 1) / block_frames : 1;
+  const int cid = blockIdx.x / kCluster;
+  const int tile0 = (cid / n_blocks) * kTile;  // first stream of the tile
+  const int f_lo = kChunk ? (cid % n_blocks) * block_frames : 0;
+  const int f_hi = kChunk ? min(f_lo + block_frames, frames) : 1;
+  const int f_first = kChunk ? max(f_lo - 1, 0) : 0;
+  const bool last_block = f_hi == F;  // writes new_state
+
+  // every CTA of the cluster arrives now and waits before its first store
+  // into another's shared memory, so that all have started by then
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // the weight ring: a barrier per slot, chunks 0-2 in flight (the
+  // swizzle of the slots needs 1024-byte alignment)
+  if (tid == 0) {
+    if (sb & 1023) __trap();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mbar_init(bars + 8 * k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 3; ++i) issue_chunk(ring, bars, i, maps, rank);
+  }
+  // seq1 (stage-1 carry and h), seq2's carry rows, the final conv
+  if constexpr (kChunk) {
+    load_seq1(sb + kSeq1, p, tile0, batch, F, f_first);
+  } else {
+    for (int i = tid; i < kTile * 32; i += kThreads) {
+      const int u = i & 31, s = i >> 5, b = tile0 + s;
+      cp_async16(sb + kSeq1 + Seq1::offset(s, 2, u),
+                 p.h + (size_t)(b < batch ? b : 0) * 256 + 8 * u, b < batch);
+    }
+    load_carry<Seq1, 256>(sb + kSeq1, p.state[0], 0, 0, tile0, kTile, batch);
+  }
+  load_carry<Seq2, 128>(sb + kSeq2, p.state[1], 0, 0, tile0, kTile, batch);
+  if (tid < 6)
+    cp_async16(sb + kConst + 16 * tid, p.final_w + 8 * tid);
+  else if (tid == 6)
+    cp_async4(sb + kConst + 96, p.final_b);
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised before anyone waits on them
+
+  uint2 prev2 = make_uint2(0u, 0u);
+  uint32_t keep = 0u;
+  if constexpr (kChunk) {
+    for (int fr = f_first; fr < f_hi; ++fr)
+      chunk_frame(p, maps, {batch, F, fr, fr - f_first, tile0, f_lo, fr + 1 < f_hi,
+                            last_block && fr + 1 == f_hi},
+                  prev2, keep);
+  } else {
+    tile_frame<false>(p, maps, {batch, 1, 0, 0, tile0, 0, false, true}, prev2, keep);
+  }
+}
+
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
+fused_upsampler_bf16_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
+                            const __grid_constant__ WeightMaps maps, int batch) {
+  upsample_tile<false>(p, maps, batch, 1, 1);
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
+fused_upsampler_bf16_chunk_kernel(const __grid_constant__ FusedUpsamplerArgs<bf16> p,
+                                  const __grid_constant__ WeightMaps maps, int batch, int frames,
+                                  int block_frames) {
+  upsample_tile<true>(p, maps, batch, frames, block_frames);
+}
+
+// Allows both entry points' kernels their dynamic shared memory on the
+// current device (once per device), with the carveout that fits two CTAs
+// on an SM.
 cudaError_t configure() {
   static int done[64] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(fused_upsampler_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_upsampler_bf16_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  const void* kernels[2] = {reinterpret_cast<const void*>(fused_upsampler_bf16_kernel),
+                            reinterpret_cast<const void*>(fused_upsampler_bf16_chunk_kernel)};
+  for (const void* kernel : kernels) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+  }
   if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = 1;
   return err;
 }
@@ -877,8 +1122,9 @@ cudaError_t encode_maps(const FusedUpsamplerArgs<bf16>& a, WeightMaps* m) {
 
 }  // namespace
 
-// Launch the kernel for `batch` streams on `stream`: ceil(batch / 16)
-// clusters of 8 blocks.  Return cudaGetLastError() (0 = launched).
+// Launch the one-frame kernel for `batch` streams on `stream`:
+// ceil(batch / 16) clusters of 8 blocks.  Return cudaGetLastError() (0 =
+// launched).
 extern "C" int fused_upsampler_bf16_launch(const FusedUpsamplerArgs<bf16>* args, int batch,
                                            void* stream) {
   if (batch <= 0) return 0;
@@ -890,6 +1136,29 @@ extern "C" int fused_upsampler_bf16_launch(const FusedUpsamplerArgs<bf16>* args,
   const int clusters = (batch + kTile - 1) / kTile;
   fused_upsampler_bf16_kernel<<<clusters * kCluster, kThreads, kSmemBytes,
                                 static_cast<cudaStream_t>(stream)>>>(*args, maps, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the kernel for `frames` frames of `batch` streams on `stream`, the
+// frame axis split into blocks of `block_frames`: ceil(batch / 16) x
+// ceil(frames / block_frames) clusters of 8 blocks.  Return
+// cudaGetLastError() (0 = launched).
+extern "C" int fused_upsampler_bf16_chunk_launch(const FusedUpsamplerArgs<bf16>* args,
+                                                 int batch, int frames, int block_frames,
+                                                 void* stream) {
+  if (batch <= 0 || frames <= 0) return 0;
+  if (block_frames <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  WeightMaps maps;
+  err = encode_maps(*args, &maps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long clusters = static_cast<long long>((batch + kTile - 1) / kTile) *
+                             ((frames + block_frames - 1) / block_frames);
+  if (clusters * kCluster > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  fused_upsampler_bf16_chunk_kernel<<<static_cast<int>(clusters) * kCluster, kThreads, kSmemBytes,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      *args, maps, batch, frames, block_frames);
   return static_cast<int>(cudaGetLastError());
 }
 

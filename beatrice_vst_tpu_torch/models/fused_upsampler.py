@@ -1,14 +1,16 @@
-"""The vocoder's upsampler head at T=1 as one CUDA kernel, its plain
-PyTorch version, and its launch counter.
+"""The vocoder's upsampler head as one CUDA kernel, its plain PyTorch
+version, and its launch and frame counters.
 
 Replaces the TPU kernel `beatrice_vst_tpu/models/pallas_upsampler.py:203
-fused_upsample` (its `pl.pallas_call` at `:260`).  For one 10 ms frame per
-stream it runs four depth-to-time stages (rates 4, 5, 4, 3; channels 128,
-64, 32, 16): a k=3 causal conv over [2 carried rows | input] whose output
-columns carry the rate, plus `linear(src_feats)` over the 9 source
+fused_upsample` (its `pl.pallas_call` at `:260`).  For each 10 ms frame
+per stream it runs four depth-to-time stages (rates 4, 5, 4, 3; channels
+128, 64, 32, 16): a k=3 causal conv over [2 carried rows | input] whose
+output columns carry the rate, plus `linear(src_feats)` over the 9 source
 features (sin k*phi for k = 1..8 and 0.1*noise), then the polynomial
 snake; a final k=3 conv to one channel and tanh give 240 samples at
-24 kHz.  It also returns the five new 2-row conv carries.
+24 kHz.  It also returns the five new 2-row conv carries.  A chunk of T
+frames is T such frames with the carries chained: h [B, T, 256] and
+source features [B, T*spf, 9] give audio [B, T*240].
 
 Two forms, picked by the dtype of the frame features `h`, as the JAX
 kernel's `compute_dtype` (`pallas_upsampler.py:204`):
@@ -23,12 +25,16 @@ kernel's `compute_dtype` (`pallas_upsampler.py:204`):
 `fused_upsample` is the wrapper: on a CPU tensor it runs
 `fused_upsample_reference`; on a CUDA tensor it launches the kernel of
 the form of h's dtype (built with `nvcc`, loaded with `ctypes`) or
-raises: f32 `csrc/fused_upsampler.cu`, bf16 `csrc/fused_upsampler_bf16.cu`
-(tensor cores).  `launches` and `launches_bf16` count the two forms'
-kernel launches on the card and nothing else.  A call made while a CUDA
-graph is captured launches nothing: inside `recording()` it is counted
-for that graph, and the graph's owner adds it to the counts once per
-replay (`count_replay`); outside, the wrapper raises.  Two earlier
+raises: f32 `csrc/fused_upsampler.cu` (one frame), bf16
+`csrc/fused_upsampler_bf16.cu` (tensor cores; T = 1 through its one-frame
+entry point, T > 1 in one launch of its chunk entry point, the frame axis
+split over clusters where the streams alone do not fill the card:
+`frame_block`).  `launches` and `launches_bf16` count the two forms'
+kernel launches on the card and nothing else; `frames` and `frames_bf16`
+the stream-frames those launches computed (B*T a launch).  A call made
+while a CUDA graph is captured launches nothing: inside `recording()` it
+is counted for that graph, and the graph's owner adds it to the counts
+once per replay (`count_replay`); outside, the wrapper raises.  Two earlier
 kernels stay as yardsticks that `chip_smoke.py` times the forms against,
 reachable only through `_fused_upsample(..., source=...)` and counted in
 `yardstick_launches`: the f32 form's first version
@@ -42,7 +48,9 @@ per stream of inputs, carries and outputs plus 2.2 MB of weights, 7.9 MB
 at B=256) take 2.4 us at 3.35 TB/s: bound by operations.  bf16: over
 989 TFLOP/s of dense bf16 tensor-core peak, 0.95 us; with bf16 storage
 it moves 17.8 KB per stream plus 1.1 MB of weights, 5.66 MB at B=256,
-1.69 us: bound by bytes.
+1.69 us: bound by bytes.  Per frame at T frames (`bound_ms(b, dtype,
+frames)`): the operations and the per-stream bytes scale with T, the
+weights are read once; bf16 at B=4096 and T=25 moves 1.44 GB, 0.43 ms.
 """
 
 from __future__ import annotations
@@ -73,9 +81,12 @@ PEAK_BYTES_PER_S = 3.35e12
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches of the f32 and the bf16 form since the counts were last
-# set to 0
+# set to 0, and the stream-frames they computed (B*T a launch)
 launches = 0
 launches_bf16 = 0
+frames = 0
+frames_bf16 = 0
+TILE = 16  # streams a cluster of the kernels takes
 # launches of the yardsticks, by (source, dtype)
 yardstick_launches = collections.Counter()
 # the launches recorded into the CUDA graph being captured on this thread
@@ -92,62 +103,66 @@ def _stage_dims():
     return out
 
 
-def flops_per_stream() -> int:
-    """Multiply-adds x 2 of one stream's frame: the four stage convs, the
-    source projections and the final conv."""
+def flops_per_stream(frames: int = 1) -> int:
+    """Multiply-adds x 2 of one stream's `frames` frames: the four stage
+    convs, the source projections and the final conv."""
     macs = 0
     for c_in, r, c_out, rows in _stage_dims():
         macs += rows * KERNEL * c_in * r * c_out + rows * r * N_SRC * c_out
     macs += OUT_HOP_LENGTH * KERNEL * CHANNELS[-1]
-    return 2 * macs
+    return 2 * macs * frames
 
 
-def bytes_per_call(b: int, dtype=torch.float32) -> int:
-    """Bytes the head must move for b streams: each input read once (frame
-    features, carries, source features, weights) and each output written
-    once (audio, new carries).  Frame features, carries and the matmul
-    weights are stored in `dtype`; the rest is f32."""
-    h, states, src, stages, final = expected_shapes(b)
+def bytes_per_call(b: int, dtype=torch.float32, frames: int = 1) -> int:
+    """Bytes the head must move for b streams and `frames` frames: each
+    input read once (frame features, carries, source features, weights)
+    and each output written once (audio, new carries).  Frame features,
+    carries and the matmul weights are stored in `dtype`; the rest is
+    f32."""
+    h, states, src, stages, final = expected_shapes(b, frames)
     stored = [h, *states, *states] + [st[k] for st in stages for k in ("conv_w", "src_w")]
     stored.append(final["w"])
-    f32 = [*src, (b, OUT_HOP_LENGTH), final["b"]]
+    f32 = [*src, (b, frames * OUT_HOP_LENGTH), final["b"]]
     f32 += [st[k] for st in stages for k in ("conv_b", "src_b", "log_alpha")]
     size = torch.empty((), dtype=dtype).element_size()
     return (size * sum(math.prod(shape) for shape in stored)
             + 4 * sum(math.prod(shape) for shape in f32))
 
 
-def _bound_times(b: int, dtype):
+def _bound_times(b: int, dtype, frames: int = 1):
     """(seconds of operations at the dtype's peak, seconds of bytes)."""
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    return flops_per_stream() * b / peak, bytes_per_call(b, dtype) / PEAK_BYTES_PER_S
+    return (flops_per_stream(frames) * b / peak,
+            bytes_per_call(b, dtype, frames) / PEAK_BYTES_PER_S)
 
 
-def bound_ms(b: int, dtype=torch.float32) -> float:
-    """Least time an H100 SXM could take for b streams: the larger of the
-    operations over the dtype's peak (f32 CUDA cores, or dense bf16 tensor
-    cores) and the bytes over memory bandwidth."""
-    return max(_bound_times(b, dtype)) * 1e3
+def bound_ms(b: int, dtype=torch.float32, frames: int = 1) -> float:
+    """Least time an H100 SXM could take for b streams and `frames` frames:
+    the larger of the operations over the dtype's peak (f32 CUDA cores, or
+    dense bf16 tensor cores) and the bytes over memory bandwidth."""
+    return max(_bound_times(b, dtype, frames)) * 1e3
 
 
-def bound_by(b: int, dtype=torch.float32) -> str:
-    """"operations" or "bytes": which of the two sets `bound_ms(b, dtype)`."""
-    ops, moved = _bound_times(b, dtype)
+def bound_by(b: int, dtype=torch.float32, frames: int = 1) -> str:
+    """"operations" or "bytes": which of the two sets `bound_ms(b, dtype,
+    frames)`."""
+    ops, moved = _bound_times(b, dtype, frames)
     return "operations" if ops >= moved else "bytes"
 
 
 @functools.lru_cache(maxsize=None)
-def expected_shapes(b: int):
-    """Shapes of (h, states, src_feats, stage weights, final weights)."""
+def expected_shapes(b: int, frames: int = 1):
+    """Shapes of (h, states, src_feats, stage weights, final weights) for b
+    streams and `frames` frames."""
     states = [(b, 2, c_in) for c_in, *_ in _stage_dims()] + [(b, 2, CHANNELS[-1])]
-    src = [(b, rows * r, N_SRC) for _, r, _, rows in _stage_dims()]
+    src = [(b, frames * rows * r, N_SRC) for _, r, _, rows in _stage_dims()]
     stages = [
         {"conv_w": (KERNEL, c_in, r * c), "conv_b": (r * c,),
          "src_w": (N_SRC, c), "src_b": (c,), "log_alpha": (c,)}
         for c_in, r, c, _ in _stage_dims()
     ]
     final = {"w": (KERNEL, CHANNELS[-1], 1), "b": (1,)}
-    return (b, 1, HIDDEN), states, src, stages, final
+    return (b, frames, HIDDEN), states, src, stages, final
 
 
 def _flat_weights(up_params, final_params):
@@ -178,8 +193,10 @@ def _check(up_params, final_params, h, states, src_feats):
     if h.dtype not in DTYPES:
         raise ValueError(f"fused_upsample computes in float32 or bfloat16, not {h.dtype}")
     _refuse_split(up_params, final_params)
-    b = h.shape[0]
-    want_h, want_states, want_src, want_stages, want_final = expected_shapes(b)
+    if h.dim() != 3 or h.shape[1] < 1:
+        raise ValueError(f"fused_upsample takes h [B, T >= 1, {HIDDEN}], not {tuple(h.shape)}")
+    b, t = h.shape[:2]
+    want_h, want_states, want_src, want_stages, want_final = expected_shapes(b, t)
     wants = [want_h, *want_states, *want_src]
     for st in want_stages:
         wants += [st["conv_w"], st["conv_b"], st["src_w"], st["src_b"], st["log_alpha"]]
@@ -209,6 +226,11 @@ def _check_layout(tensors):
             raise ValueError(f"fused_upsample argument {i} is not {_ALIGN}-byte aligned")
 
 
+def is_split(up_params, final_params) -> bool:
+    """Whether any head weight is split over 'model' (a `DTensor`)."""
+    return any(collectives.is_sharded(t) for t in _flat_weights(up_params, final_params))
+
+
 def _refuse_split(up_params, final_params):
     """Raise on a weight split over 'model' (a `DTensor`): the head runs its
     four stages on one rank and needs every weight whole (`shard_tree`
@@ -235,12 +257,25 @@ def fused_upsample_reference(up_params, final_params, h, states, src_feats):
     is the stage loop of the JAX package's XLA path
     (`tests/test_pallas.py:33-44`).
 
-    h: [B, 1, 256]; states: 5 carries [B, 2, C]; src_feats: 4 tensors
-    [B, 4|20|80|240, 9].  Conv and source operands are rounded to h's
-    dtype and their products summed in f32; biases and the snake are f32;
-    each stage's output is rounded where the next stage reads it; the new
-    carries keep their dtype.  Returns (audio [B, 240] f32, new_states).
+    h: [B, T, 256]; states: 5 carries [B, 2, C]; src_feats: 4 tensors
+    [B, T*(4|20|80|240), 9].  Frame by frame, the carries chained: conv
+    and source operands are rounded to h's dtype and their products
+    summed in f32; biases and the snake are f32; each stage's output is
+    rounded where the next stage reads it; the new carries keep their
+    dtype.  Returns (audio [B, T*240] f32, new_states).
     """
+    t = h.shape[1]
+    audio = []
+    for f in range(t):
+        frame_src = [s.reshape(s.shape[0], t, -1, N_SRC)[:, f] for s in src_feats]
+        a, states = _reference_frame(up_params, final_params, h[:, f:f + 1], states, frame_src)
+        audio.append(a)
+    return (audio[0] if t == 1 else torch.cat(audio, dim=1)), states
+
+
+def _reference_frame(up_params, final_params, h, states, src_feats):
+    """`fused_upsample_reference` for one frame: h [B, 1, 256], src_feats
+    [B, 4|20|80|240, 9]."""
     cd = h.dtype
     b = h.shape[0]
 
@@ -328,6 +363,36 @@ def _launcher(source: str, dtype):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _chunk_launcher():
+    """The chunk entry point of the bf16 form (csrc/fused_upsampler_bf16.cu),
+    built and loaded, its argument types set."""
+    from .. import cuda_build
+
+    fn = cuda_build.load_library(FORMS[torch.bfloat16]).fused_upsampler_bf16_chunk_launch
+    # (const FusedUpsamplerArgs<bf16>*, int batch, int frames, int block_frames, cudaStream_t)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def frame_block(b: int, t: int, clusters: int) -> int:
+    """Frames each cluster of a T > 1 launch runs (its block of the frame
+    axis, after one warm-up frame where the block does not start at 0):
+    all T where the ceil(b / 16) tiles alone fill the `clusters` the card
+    holds at once, else T split into as many blocks as fill it (b = 1 at
+    T = 256 and 30 clusters: blocks of 9 frames)."""
+    tiles = -(-b // TILE)
+    blocks = max(1, min(t, clusters // tiles))
+    return -(-t // blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters(device_index: int) -> int:
+    """Clusters of the bf16 form the card `device_index` holds at once."""
+    return occupancy(torch.device("cuda", device_index), torch.bfloat16)["max_active_clusters"]
+
+
 def occupancy(device=None, dtype=torch.float32) -> dict:
     """How many of the kernel's clusters of 8 blocks the card holds at
     once, and the kernel's dynamic shared memory per block, for the
@@ -346,26 +411,27 @@ def occupancy(device=None, dtype=torch.float32) -> dict:
 
 
 def fused_upsample(up_params, final_params, h, states, src_feats):
-    """Run the upsampler head for one frame (same arguments and results as
-    `fused_upsample_reference`).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel's form of h's dtype on the current stream,
-    without synchronising, or raise.  The kernel has no backward (nor has
+    """Run the upsampler head for a chunk of T frames (same arguments and
+    results as `fused_upsample_reference`).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel's form of h's dtype on the
+    current stream, without synchronising, or raise: the f32 form takes
+    one frame, the bf16 form any T in one launch.  The kernel has no backward (nor has
     the JAX kernel a VJP), so under autograd with an input that requires
     grad a CUDA call raises instead of returning outputs without a
     gradient: the trainer runs the plain head (`upsampler_kernel=False`)."""
     return _fused_upsample(up_params, final_params, h, states, src_feats)
 
 
-def _requires_grad(*trees) -> bool:
+def requires_grad(*trees) -> bool:
     """Whether any tensor in the nested lists and dicts requires grad."""
     for node in trees:
         if isinstance(node, torch.Tensor):
             if node.requires_grad:
                 return True
         elif isinstance(node, dict):
-            if _requires_grad(*node.values()):
+            if requires_grad(*node.values()):
                 return True
-        elif isinstance(node, (list, tuple)) and _requires_grad(*node):
+        elif isinstance(node, (list, tuple)) and requires_grad(*node):
             return True
     return False
 
@@ -379,51 +445,63 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
         return fused_upsample_reference(up_params, final_params, h, states, src_feats)
     if h.device.type != "cuda":
         raise ValueError(f"fused_upsample runs on cpu or cuda, not {h.device}")
-    if torch.is_grad_enabled() and _requires_grad(up_params, final_params, h, states,
+    if torch.is_grad_enabled() and requires_grad(up_params, final_params, h, states,
                                                   src_feats):
         raise RuntimeError("the fused upsampler kernel has no backward: run the plain head "
                            "(WaveformGeneratorConfig(upsampler_kernel=False)) under autograd")
     source = source or FORMS[h.dtype]
+    b, t = h.shape[:2]
+    if t > 1 and source != FORMS[torch.bfloat16]:
+        raise ValueError(f"csrc/{source}.cu takes one frame a launch, not {t}: only the bf16 "
+                         "form takes a chunk")
     recorded = None
     if torch.cuda.is_current_stream_capturing():
         recorded = getattr(_capture, "counts", None)
         if recorded is None:
             raise RuntimeError("fused_upsample captured into a CUDA graph outside "
                                "fused_upsampler.recording(): its replays would go uncounted")
-    launch = _launcher(source, h.dtype)
-    b = h.shape[0]
-    audio = torch.empty((b, OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
+    audio = torch.empty((b, t * OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
     new_states = [torch.empty_like(s) for s in states]
     args = _pack(got, audio, new_states)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = launch(ctypes.addressof(args), b, stream)
+        if t == 1:
+            err = _launcher(source, h.dtype)(ctypes.addressof(args), b, stream)
+        else:
+            block = frame_block(b, t, _clusters(torch.cuda.current_device()))
+            err = _chunk_launcher()(ctypes.addressof(args), b, t, block, stream)
     if err != 0:
         raise RuntimeError(f"fused_upsampler kernel launch failed: CUDA error {err}")
     if recorded is not None:
         recorded[source, h.dtype] += 1
+        if source == FORMS[h.dtype]:
+            recorded[source, h.dtype, "frames"] += b * t
     else:
-        _count(source, h.dtype, 1)
+        _count(source, h.dtype, 1, b * t)
     return audio, new_states
 
 
-def _count(source, dtype, n):
-    """Add n launches of csrc/<source>.cu's kernel for `dtype` to its count."""
-    global launches, launches_bf16
+def _count(source, dtype, n, stream_frames=0):
+    """Add n launches of csrc/<source>.cu's kernel for `dtype` to its count,
+    and for a form (not a yardstick) the stream-frames they computed."""
+    global launches, launches_bf16, frames, frames_bf16
     if source != FORMS[dtype]:
         yardstick_launches[source, str(dtype)] += n
     elif dtype == torch.float32:
         launches += n
+        frames += stream_frames
     else:
         launches_bf16 += n
+        frames_bf16 += stream_frames
 
 
 @contextlib.contextmanager
 def recording():
     """Around the capture of a CUDA graph on this thread: yields a Counter
-    of the kernel launches the graph records, by (source, dtype), which
-    go to no count (capture launches nothing).  Pass it to `count_replay`
-    at each replay."""
+    of the kernel launches the graph records, by (source, dtype), and of
+    the forms' stream-frames, by (source, dtype, "frames"), which go to no
+    count (capture launches nothing).  Pass it to `count_replay` at each
+    replay."""
     _capture.counts = counts = collections.Counter()
     try:
         yield counts
@@ -433,6 +511,17 @@ def recording():
 
 def count_replay(recorded) -> None:
     """Count one replay of a graph that recorded `recorded` (`recording`):
-    each of its kernel launches is a launch on the card."""
-    for (source, dtype), n in recorded.items():
-        _count(source, dtype, n)
+    each of its kernel launches is a launch on the card, and its frames
+    frames computed."""
+    for key, n in recorded.items():
+        if len(key) == 3:  # (source, dtype, "frames")
+            _count(key[0], key[1], 0, n)
+        else:
+            _count(*key, n)
+
+
+def counts() -> dict:
+    """The forms' launches and stream-frames in this process, as the
+    engine's and the server's `metrics` report them."""
+    return {"upsampler_kernel_launches": {"float32": launches, "bfloat16": launches_bf16},
+            "upsampler_kernel_frames": {"float32": frames, "bfloat16": frames_bf16}}

@@ -10,11 +10,13 @@ projected cache (f32/bf16, or int8 with per-row scales) or a shared slot
 bank read through one-hot contractions (f32/bf16, or int8 with int8
 contractions); 2.0.0-alpha.2 and 2.0.0-beta.1 have no attention -- then a
 harmonic-plus-noise source evaluated at every upsampler rate and the
-depth-to-time upsampler head.  The head, chosen by T as in the JAX
-package (`waveform_generator.py:439`): at T = 1 the fused head
-(`fused_upsampler.py`: the CUDA kernel on a CUDA tensor, or with
-`upsampler_kernel=False` its plain version); at T > 1 `upsample_stages`,
-the stage loop of the JAX package's XLA path.  With soft pitch the bins
+depth-to-time upsampler head.  The head (`head_route`): at T = 1 the fused
+head as in the JAX package (`waveform_generator.py:439`;
+`fused_upsampler.py`: the CUDA kernel on a CUDA tensor, or with
+`upsampler_kernel=False` its plain version); at T > 1 the bf16 kernel in
+one launch where the call is on the card in bf16 without autograd, else
+`upsample_stages`, the stage loop of the JAX package's XLA path (the
+CPU, f32, training, split weights).  With soft pitch the bins
 are continuous and the pitch embedding is interpolated between the
 bracketing rows.  With a compute dtype the residual stream, the carries
 and the head compute in it (`waveform_generator.py:336-395`).
@@ -33,7 +35,8 @@ from ..constants import OUT_HOP_LENGTH, OUT_SAMPLE_RATE, VersionSpec
 from ..device import mark, resolve_device
 from ..parallel import collectives
 from . import layers
-from .fused_upsampler import fused_upsample, fused_upsample_reference, head_params
+from .fused_upsampler import (fused_upsample, fused_upsample_reference, head_params, is_split,
+                              requires_grad)
 from .io import params_from_numpy
 
 _TWO_PI = 2.0 * math.pi
@@ -57,9 +60,10 @@ class WaveformGeneratorConfig:
     n_harmonics: int = 8
     noise_salt: int = 0x5EED
     # True: at T = 1 the upsampler head goes through the fused_upsample
-    # wrapper (the CUDA kernel on a CUDA tensor).  False forces its plain
-    # PyTorch version on any device -- the yardstick the kernel is checked
-    # against.  At T > 1 the head is always `upsample_stages`.
+    # wrapper (the CUDA kernel on a CUDA tensor), and at T > 1 it does in
+    # bf16 on the card without autograd (`head_route`).  False forces the
+    # plain PyTorch version at T = 1 on any device -- the yardstick the
+    # kernel is checked against -- and `upsample_stages` at T > 1.
     upsampler_kernel: bool = True
 
     @classmethod
@@ -219,16 +223,41 @@ def source_features(cfg: WaveformGeneratorConfig, quantized_pitch, periodicity,
                     state):
     """The fused head's source input at each stage rate: 4 tensors
     [B, T*spf, H+1] = [sin(k*phi) bank | 0.1 * noise]
-    (`waveform_generator.py:441-454`), and the new (phase, noise_counter)."""
+    (`waveform_generator.py:441-454`), and the new (phase, noise_counter).
+    At T > 1 the same values are built a feature at a time
+    (`_planar_features`)."""
     b, t = quantized_pitch.shape
     sources, new_phase, new_counter = stage_sources(cfg, quantized_pitch, state)
     feats = []
     for phases, noise in sources:
+        if t > 1:
+            feats.append(_planar_features(phases, periodicity, noise, cfg.n_harmonics))
+            continue
         n = phases.shape[-1] * t
         harm = _harmonic_features(phases, periodicity, cfg.n_harmonics)
         feats.append(torch.cat([harm.reshape(b, n, cfg.n_harmonics),
                                 0.1 * noise.reshape(b, n, 1)], dim=-1))
     return feats, new_phase, new_counter
+
+
+def _planar_features(phases, periodicity, noise, n_harmonics: int):
+    """`source_features`' [B, T*S, H+1] for one stage, by the operations of
+    `_harmonic_features` and the noise scaling, each feature written as a
+    contiguous plane [B, T, S], then one copy that interleaves them: at a
+    chunk's size (a few GB at 4,096 streams and T = 25) the stack and the
+    concatenation over the last axis of width 8 and 9 cost several times
+    that (T = 1 keeps them, and its kernels)."""
+    planes = torch.empty((n_harmonics + 1, *phases.shape), dtype=torch.float32,
+                         device=phases.device)
+    torch.sin(phases, out=planes[0])
+    if n_harmonics > 1:
+        c2 = 2.0 * torch.cos(phases)
+        torch.mul(c2, planes[0], out=planes[1])
+        for k in range(2, n_harmonics):
+            torch.sub(c2 * planes[k - 1], planes[k - 2], out=planes[k])
+    planes[:n_harmonics] *= torch.sigmoid(periodicity)[..., None]
+    torch.mul(noise, 0.1, out=planes[n_harmonics])
+    return planes.permute(1, 2, 3, 0).contiguous().view(phases.shape[0], -1, n_harmonics + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,6 +333,26 @@ def upsample_stages(cfg: WaveformGeneratorConfig, up_params, final_params, h, up
         x = layers.snake(up["snake"], y)
     y, new_final = layers.causal_conv(final_params, x, final_state, 1, compute_dtype)
     return torch.tanh(y.float())[..., 0], new_up, new_final
+
+
+def head_route(cfg: WaveformGeneratorConfig, frames: int, device_type: str, dtype,
+               needs_grad: bool = False, split: bool = False) -> str:
+    """Which upsampler head a chunk of `frames` frames takes, from what the
+    call can observe: "fused" (`fused_upsample`: the CUDA kernel of h's
+    dtype on the card, its plain version on the CPU), "reference"
+    (`fused_upsample_reference`) or "stages" (`upsample_stages`).  At T = 1
+    the fused head, or its plain version with `upsampler_kernel=False`.
+    At T > 1 the bf16 kernel (one launch, any batch: it splits the frame
+    axis where the streams do not fill the card) on a CUDA tensor in
+    bf16, with `upsampler_kernel` set, no input that needs a gradient
+    (the kernel has no backward) and no head weight split over 'model';
+    else the stage loop, as the JAX package runs it."""
+    if frames == 1:
+        return "fused" if cfg.upsampler_kernel else "reference"
+    if (cfg.upsampler_kernel and device_type == "cuda" and dtype == torch.bfloat16
+            and not needs_grad and not split):
+        return "fused"
+    return "stages"
 
 
 def _attention(p, h, i, kv_cache, kv_bank, slot_onehot, compute_dtype):
@@ -387,12 +436,20 @@ def apply(params, cfg: WaveformGeneratorConfig, phone, quantized_pitch,
 
     mark("head")
     periodicity = pitch_features[..., 0]  # feature 0 gates voicing
-    if t == 1:
+    needs_grad = torch.is_grad_enabled() and requires_grad(
+        params["up"], params["final"], h, pitch_features, state["up"], state["final"])
+    route = head_route(cfg, t, h.device.type, h.dtype, needs_grad,
+                       is_split(params["up"], params["final"]))
+    if route != "stages":
         src, new_phase, new_counter = source_features(cfg, qp, periodicity, state)
-        head = fused_upsample if cfg.upsampler_kernel else fused_upsample_reference
+        head = fused_upsample if route == "fused" else fused_upsample_reference
         up, final = head_params(params["up"], params["final"], h.dtype)
-        audio, new_states = head(up, final, h.contiguous(), [*state["up"], state["final"]],
+        # the head takes its carries in h's dtype (an offline bf16 chain
+        # keeps f32 carries, which hold bf16 values); they go back in theirs
+        carries = [*state["up"], state["final"]]
+        audio, new_states = head(up, final, h.contiguous(), [c.to(h.dtype) for c in carries],
                                  src)
+        new_states = [n.to(c.dtype) for n, c in zip(new_states, carries)]
         new_up, new_final = new_states[:-1], new_states[-1]
     else:
         sources, new_phase, new_counter = stage_sources(cfg, qp, state)

@@ -74,7 +74,7 @@ from ..constants import (COMMON_HOP_LENGTH, MAX_N_SPEAKERS, SPH_AVG_MAX_N_SPEAKE
                          VersionSpec)
 from ..device import mark, recording_marks, resolve_device
 from ..errors import BeatriceError, ErrorCode
-from ..models import chain, waveform_generator
+from ..models import chain, fused_upsampler, waveform_generator
 from ..models.chain import VoiceConverterConfig
 from ..models.io import params_from_numpy
 from ..models.layers import quantize_rows
@@ -839,8 +839,12 @@ class StreamEngine:
         return self.tracer.switch(on)
 
     def metrics_snapshot(self) -> dict:
+        """The tick metrics, the engine's and the tracer's counters, and the
+        upsampler kernel's launches and stream-frames in this process by
+        form (`upsampler_kernel_launches`, `upsampler_kernel_frames`: the
+        counters of models/fused_upsampler.py; none on the CPU)."""
         return {**self.metrics.snapshot(self.n_active), **self.counters,
-                **self.tracer.counters}
+                **self.tracer.counters, **fused_upsampler.counts()}
 
     @property
     def n_active(self) -> int:

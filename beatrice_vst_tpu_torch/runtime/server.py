@@ -47,7 +47,6 @@ import numpy as np
 import torch
 
 from ..constants import COMMON_SAMPLE_RATE
-from ..models import fused_upsampler
 from ..native import HostResampler, SpscRing
 
 # the parts of a scheduler tick, each a span serve.<part> (`metrics.py`)
@@ -334,9 +333,9 @@ class StreamingServer:
         for the tick's output on the device) and of each of its parts
         (serve_<part>_p50_ms, serve_<part>_p90_ms for gather, wait_in,
         engine, wait_out, scatter), ticks per second since start() (100 is
-        real time at T = 1), and the upsampler kernel's launches in this
-        process by form (its counters in models/fused_upsampler.py; none
-        on the CPU)."""
+        real time at T = 1), and the upsampler kernel's launches and
+        stream-frames in this process by form (the engine's
+        `upsampler_kernel_launches`, `upsampler_kernel_frames`)."""
         snap = self.engine.metrics_snapshot()
         with self._lock:
             sessions = list(self.sessions.values())
@@ -348,8 +347,6 @@ class StreamingServer:
         for part in SERVE_PARTS:
             snap[f"serve_{part}_p50_ms"], snap[f"serve_{part}_p90_ms"] = tr.window_ms(
                 f"serve.{part}")
-        snap["upsampler_kernel_launches"] = {"float32": fused_upsampler.launches,
-                                             "bfloat16": fused_upsampler.launches_bf16}
         if self._started is not None:
             snap["serve_ticks_per_s"] = self._ticks / max(time.monotonic() - self._started, 1e-9)
         return snap

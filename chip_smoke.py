@@ -36,6 +36,13 @@ Phases, each printing one line with its seconds:
                 phases below launch it at (4, 6, 8 and 64: the golden runs
                 and the serving phases; all but 64 are partial tiles of 16
                 streams).
+ 3b. chunk_kernel -- the bf16 form's chunk entry point (T frames a
+                launch) at (B, T) = (256, 25), (1, 256) and (4096, 25):
+                against the plain version over T frames at the bf16
+                tolerance, bitwise against T chained one-frame launches;
+                device ms warm and cold, the T one-frame launches', the
+                stage loop's it replaces (upsample_stages) and the bound at
+                T frames.
   4. graph   -- one line per configuration: the compiled tick (StreamEngine's
                 default jit=True, one CUDA graph replayed per tick) against
                 the eager tick (jit=False) at capacity 256, T = 1, TICKS
@@ -234,7 +241,9 @@ Phases, each printing one line with its seconds:
                 each, the first compiled call's seconds, captures and
                 capture ms, peak MiB of each and the MiB the compiled steps
                 keep; then klatt8 and klatt8_r6 (the same shapes), each
-                compiled conversion equal to its own eager one.
+                compiled conversion equal to its own eager one.  The bf16
+                cases launch the tensor-core form (a chunk a launch, its
+                frames counted), the f32 ones neither form.
  21. seqpar_graph -- convert_utterance_sp at 4 segments on 20 s, compiled
                 (both passes and the resamplers) against eager, as above.
  22. parity_graph -- the kernel inside a compiled path: run_parity on klatt8 at
@@ -291,7 +300,8 @@ Phases, each printing one line with its seconds:
                 without: the JAX script's gate (every client's audio
                 finite, non-silent and all back but its slack; the
                 scheduler's median span under the audio a tick carries);
-                the bf16 form once a tick at T = 1, never at T = 25;
+                the bf16 form once a tick at T = 1 and at T = 25, each
+                launch 256 x T frames (the frame counter);
                 shut down through the front end's own path (connections
                 joined, then the host stopped).
  24f. multihost -- scripts/multihost_smoke.py: two worker processes
@@ -359,19 +369,23 @@ Phases, each printing one line with its seconds:
  26. profile -- only with `--profile DIR`: where the engine's tick time
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
-Then the kernels line (each form's launches summed over every path that
-drove it, a graph's replays included: the graph phases (eager and graph
+Then the kernels line: an entry per form with its one-frame launches,
+and one for the bf16 form's chunk entry point with its launches (the
+serve soak at T = 25, serve_soak_t25, and offline_graph's bf16
+conversions, offline_graph), each summed over every path that
+drove it, a graph's replays included (the graph phases (eager and graph
 engines), the engine configurations, the morph engines, the streaming
 halves of parity, the older versions' engines, the in-process serving
 paths serve_golden, serve_pipeline and serve_ws, the soak's T = 1
 engines (soak_a, soak_b) and the latency probe's, the compiled streaming
 halves of parity_graph (their replays and their captures' warm-up
-ticks), baseline_configs' #2 and #4 (baseline_2, baseline_4), the T = 1
-serve soak (serve_soak_t1; the T = 25 soak launches neither), the
+ticks), baseline_configs' #2 and #4 (baseline_2, baseline_4), the
+T = 1 serve soak (serve_soak_t1), the
 multihost workers (multihost, summed over both), and the mesh paths mesh_golden, mesh_tp, mesh_engine,
 mesh_graph (replays and warm-up ticks), mesh_nccl and mesh_nccl_graph,
 summed over their ranks; the phases from train_golden to
-seqpar_graph (quality and train_real included), from train_graph to
+seqpar_graph (quality and train_real included; offline_graph's f32
+conversions), from train_graph to
 distill_parity, and train_demo launch neither form), the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits non-zero without printing a result.  It exits with 1 where
@@ -408,6 +422,14 @@ FLUSH_BYTES = 128 << 20  # written before each cold-L2 launch: 2.5x the 50 MB L2
 # the batches at which each form is timed against its yardstick
 # (fused_upsampler.YARDSTICKS) in the same run
 YARDSTICK_BATCHES = {"float32": (CAPACITY,), "bfloat16": KERNEL_BATCHES}
+# the bf16 form's chunk entry point at (B, T): the serving soak's ticks, a
+# bf16 offline conversion's 256-frame chunks of one stream (the frame axis
+# split over clusters) and rc0-bf16.t25's ticks, the case the kernels line
+# reports; the paths whose launches are all chunk launches
+CHUNK_KERNEL_CASES = ((256, 25), (1, 256), (4096, 25))
+CHUNK_KERNEL_AT = (4096, 25)
+CHUNK_KERNEL_PATHS = ("serve_soak_t25", "offline_graph")
+CHAINED_REPS = 2  # T one-frame launches a call: 512 at T = 256
 # name -> (EngineConfig.realtime keywords, kernel form, engine tolerance
 # against the plain-upsampler engine: the kernel's, carried through the
 # upsampler state)
@@ -420,6 +442,7 @@ ENGINE_CONFIGS = {
 MAIN_CONFIG = {"float32": "slots_f32", "bfloat16": "slots_bf16"}
 KERNEL_NAME = {"float32": "fused_upsampler", "bfloat16": "fused_upsampler_bf16"}
 COUNTER = {"float32": "launches", "bfloat16": "launches_bf16"}
+FRAME_COUNTER = {"float32": "frames", "bfloat16": "frames_bf16"}
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_engine_golden.npz")
 OFFLINE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_offline_golden.npz")
@@ -544,16 +567,16 @@ def device_ms(fn, n, cycles_per_ms, call_us, before=None, tries=3):
     raise AssertionError(f"the host set the pace in {tries} readings")
 
 
-def upsampler_inputs(b, seed, device, dtype):
-    """Stage weights, frame features, carries and source features for the
-    upsampler head at batch b, from a numpy seed (weights scaled as the
-    JAX package initialises them); for bf16, frame features, carries and
-    matmul weights rounded to bf16."""
+def raw_upsampler_inputs(b, seed, device, frames=1):
+    """f32 stage weights (scaled as the JAX package initialises them),
+    frame features [b, frames, 256], carries and source features for the
+    upsampler head at batch b, from a numpy seed."""
     import torch
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
     rng = np.random.default_rng(seed)
-    h_shape, state_shapes, src_shapes, stage_shapes, final_shapes = FU.expected_shapes(b)
+    h_shape, state_shapes, src_shapes, stage_shapes, final_shapes = FU.expected_shapes(
+        b, frames)
 
     def u(shape, fan_in):
         s = 1.0 / np.sqrt(fan_in)
@@ -572,6 +595,36 @@ def upsampler_inputs(b, seed, device, dtype):
     h = n(h_shape, 0.5)
     states = [n(s, 0.1) for s in state_shapes]
     src = [n(s, 0.3) for s in src_shapes]
+    return up, final, h, states, src
+
+
+def synced_ms(fn, n):
+    """Median device ms of fn between a CUDA event pair, each call after a
+    synchronise: for work whose enqueue waits on the device, which no
+    sleep ahead of it can hide (`device_ms` then reads again until it
+    gives up); the device's waits for the host within a call are
+    counted."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def upsampler_inputs(b, seed, device, dtype, frames=1):
+    """`raw_upsampler_inputs` as the head takes them in `dtype`: for bf16,
+    frame features, carries and matmul weights rounded to bf16."""
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    up, final, h, states, src = raw_upsampler_inputs(b, seed, device, frames)
     up, final = FU.head_params(up, final, dtype)
     return up, final, h.to(dtype), [s.to(dtype) for s in states], src
 
@@ -716,6 +769,109 @@ def kernel_phase(device, dtype_name):
     return entry
 
 
+def chunk_kernel_phase(device):
+    """The bf16 form's chunk entry point (T frames a launch) at (B, T) in
+    CHUNK_KERNEL_CASES: against its plain version over T frames
+    (`fused_upsample_reference`, the carries chained) at the bf16
+    tolerance, and bitwise against T chained one-frame launches on the
+    same frames (contiguous copies, as a launch a frame would read them);
+    device ms with L2 warm and cold, the bound at T frames, the T
+    one-frame launches, and the stage loop the chunk path ran before
+    (`upsample_stages` on the same f32 weights, frame features and
+    carries, its sources built beforehand as the kernel's features are;
+    timed a call at a time, `synced_ms`: behind a device sleep its
+    enqueue waits on the device).
+    Returns the kernels-line entry at CHUNK_KERNEL_AT (without launches,
+    which the serving and offline phases count)."""
+    import torch
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+
+    t0 = time.perf_counter()
+    dtype = torch.bfloat16
+    tol = KERNEL_TOL["bfloat16"]
+    cycles_per_ms = sleep_cycles_per_ms()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    wcfg = W.WaveformGeneratorConfig.for_version(V20RC0)
+    by_case = []
+    for b, t in CHUNK_KERNEL_CASES:
+        raw_up, raw_final, h, states, src = raw_upsampler_inputs(b, 0, device, frames=t)
+        up, final = FU.head_params(raw_up, raw_final, dtype)
+        h, states = h.to(dtype), [s.to(dtype) for s in states]
+        args = (up, final, h, states, src)
+        got = FU.fused_upsample(*args)
+        diffs = max_abs_diffs(got, FU.fused_upsample_reference(*args))
+        if not np.isfinite(max(diffs)) or max(diffs) > tol:
+            raise AssertionError(f"fused_upsampler bf16 chunk vs plain at B={b}, T={t}: "
+                                 f"max|d| {diffs} > {tol}")
+        frame_args = [(h[:, i:i + 1].contiguous(),
+                       [s.view(b, t, -1, FU.N_SRC)[:, i].contiguous() for s in src])
+                      for i in range(t)]
+
+        def chained():
+            carries, audio = states, []
+            for h_i, src_i in frame_args:
+                a, carries = FU.fused_upsample(up, final, h_i, carries, src_i)
+                audio.append(a)
+            return torch.cat(audio, dim=1), carries
+
+        want = chained()
+        if not all(torch.equal(g, w) for g, w in zip([got[0], *got[1]], [want[0], *want[1]])):
+            raise AssertionError(f"fused_upsampler bf16 chunk at B={b}, T={t}: not bitwise "
+                                 f"equal to {t} chained one-frame launches")
+        rng = np.random.default_rng(1)
+        qp = torch.from_numpy(rng.integers(50, 350, (b, t))).to(device)
+        voicing = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32)).to(device)
+        sources = W.stage_sources(wcfg, qp, {
+            "phase": torch.zeros(b, device=device),
+            "noise_counter": torch.zeros(b, dtype=torch.int64, device=device)})[0]
+
+        def kernel():
+            FU.fused_upsample(*args)
+
+        def stages():
+            W.upsample_stages(wcfg, raw_up, raw_final, h, states[:4], states[4], sources,
+                              voicing, dtype)
+
+        call_us = host_us(kernel)
+        warm = device_ms(kernel, KERNEL_REPS, cycles_per_ms, call_us)
+        cold = device_ms(kernel, KERNEL_REPS, cycles_per_ms, call_us, before=flush.zero_)
+        chained_ms = device_ms(chained, CHAINED_REPS, cycles_per_ms, host_us(chained, n=5))
+        plain_ms = synced_ms(stages, PLAIN_REPS)
+        bound = FU.bound_ms(b, dtype, frames=t)
+        by_case.append({"batch": b, "frames": t, "block_frames": FU.frame_block(
+                            b, t, FU.occupancy(device, dtype)["max_active_clusters"]),
+                        "max_abs_diff": max(diffs), "per_output_max_abs_diff": diffs,
+                        "ms": warm, "cold_l2_ms": cold, "host_us_per_call": call_us,
+                        "chained_one_frame_ms": chained_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": FU.bound_by(b, dtype, frames=t),
+                        "share_of_bound": bound / warm,
+                        "flops": FU.flops_per_stream(t) * b,
+                        "bytes": FU.bytes_per_call(b, dtype, frames=t)})
+        del args, frame_args, got, want, sources
+    del flush
+    at = next(r for r in by_case if (r["batch"], r["frames"]) == CHUNK_KERNEL_AT)
+    entry = {
+        "name": "fused_upsampler_bf16_chunk",
+        "route": "cuda",
+        "source": f"beatrice_vst_tpu_torch/csrc/{FU.FORMS[dtype]}.cu",
+        "entry_point": "fused_upsampler_bf16_chunk_launch",
+        "replaces": "beatrice_vst_tpu/models/pallas_upsampler.py:203",
+        "dtype": "bfloat16",
+        **{k: at[k] for k in ("batch", "frames", "max_abs_diff", "ms", "cold_l2_ms",
+                              "host_us_per_call", "chained_one_frame_ms", "plain_ms",
+                              "bound_ms", "bound_by")},
+        "max_abs_err": at["max_abs_diff"],
+        "tol": tol,
+        "plain": "waveform_generator.upsample_stages",
+        "library_ms": None,
+        "by_case": by_case,
+    }
+    log("chunk_kernel", t0, dtype="bfloat16", tol=tol, reps=KERNEL_REPS, by_case=by_case)
+    return entry
+
+
 def klatt8(device):
     """The klatt8 weights and speaker bank on the card."""
     from beatrice_vst_tpu_torch.constants import V20RC0
@@ -790,10 +946,18 @@ def launch_counts():
     return counts
 
 
+def frame_counts():
+    """The stream-frames each form's launches computed since the counts
+    were last set to 0 (B x T a launch)."""
+    from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+
+    return {form: getattr(FU, FRAME_COUNTER[form]) for form in FRAME_COUNTER}
+
+
 def reset_launch_counts():
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
-    FU.launches = FU.launches_bf16 = 0
+    FU.launches = FU.launches_bf16 = FU.frames = FU.frames_bf16 = 0
     FU.yardstick_launches.clear()
 
 
@@ -2408,8 +2572,11 @@ def offline_graph_phase(device, card):
     on klatt8: 20 s at 44.1 kHz chunked and 1.5 s whole, f32 and bf16
     (graph_vs_eager); then the two-model check: klatt8 and klatt8_r6 (the
     same shapes), each compiled conversion bitwise equal to its own eager
-    one and the two models' outputs apart.  The fused upsampler never
-    launched (T > 1 runs the stage loop)."""
+    one and the two models' outputs apart.  The f32 conversions never
+    launch the fused upsampler (T > 1 runs the stage loop in f32); the bf16
+    ones launch the tensor-core form, a chunk a launch (B x T frames; the
+    utterance padded to whole chunks, so every launch of a case takes the
+    same T > 1)."""
     import torch
     from beatrice_vst_tpu_torch import golden
     from beatrice_vst_tpu_torch.constants import V20RC0
@@ -2422,15 +2589,23 @@ def offline_graph_phase(device, card):
     cfg = VoiceConverterConfig.for_version(V20RC0)
     settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
     rate = golden.OFFLINE_RATE
-    reset_launch_counts()
-    cases = {}
+    cases, launched = {}, {}
     for name, (seconds, chunk, dtype) in OFFLINE_GRAPH_CASES.items():
         sig = golden.offline_signal(seconds=seconds)
         cd = getattr(torch, dtype) if dtype else None
+        reset_launch_counts()
         _, cases[name] = graph_vs_eager(
             lambda jit: convert_utterance(params, cfg, bank, sig, rate, settings,
                                           compute_dtype=cd, chunk_frames=chunk, device=device,
                                           jit=jit), seconds)
+        c, frames = launch_counts(), frame_counts()
+        launched[name] = {**c, "frames": frames}
+        bf16_ok = (c["bfloat16"] > 0 and frames["bfloat16"] % c["bfloat16"] == 0
+                   and frames["bfloat16"] // c["bfloat16"] > 1)
+        if c["float32"] or c["yardstick_float32"] or c["yardstick_bfloat16"] \
+                or (bf16_ok if dtype is None else not bf16_ok):
+            raise AssertionError(f"offline_graph {name}: kernel launches {c}, frames {frames}")
+    reset_launch_counts()
     sig = golden.offline_signal()
     models = {}
     for name, d in (("klatt8", MODEL_DIR), ("klatt8_r6", SWAP_MODEL_DIR)):
@@ -2447,10 +2622,11 @@ def offline_graph_phase(device, card):
     if not apart > 1e-3:
         raise AssertionError(f"offline: klatt8 and klatt8_r6 convert alike ({apart}): a step "
                              "read the other model's parameters")
-    counts = no_upsampler_launches("offline_graph")
+    launched["two_models"] = no_upsampler_launches("offline_graph")
     log("offline_graph", t0, model="klatt8", rate=rate, cases=cases,
         two_models={"max_abs_diff_each_vs_own_eager": 0.0, "max_abs_diff_between": apart},
-        kernel_launches=counts, nvidia_smi=card)
+        kernel_launches=launched, nvidia_smi=card)
+    return sum(c["bfloat16"] for c in launched.values())
 
 
 def seqpar_graph_phase(device, card):
@@ -2843,8 +3019,9 @@ def serve_soak_phase(device, card, by_path):
     SOAK_CLIENTS client processes for SOAK_SECONDS, at each of SOAK_RUNS
     (capacity 256, bf16, the TCP front end in this process): the JAX
     script's gate (`ok`); the bf16 form launched once a tick and warm-up
-    tick at T = 1 (within the one tick between the metrics read and the
-    counts'), never at T = 25 (the stage loop), the f32 form never."""
+    tick at T = 1 and at T = 25 (within the one tick between the metrics
+    read and the counts'), each launch 256 x T stream-frames, the f32 form
+    never."""
     from unittest import mock
 
     from beatrice_vst_tpu_torch.scripts import serve_soak
@@ -2857,14 +3034,17 @@ def serve_soak_phase(device, card, by_path):
             for knob in ("SOAK_MIN_CADENCE", "SOAK_QUIET_S", "BEATRICE_TICK_PERIOD_SCALE"):
                 os.environ.pop(knob, None)  # the defaults
             key, rep = serve_soak.run(SOAK_CLIENTS, SOAK_SECONDS, device, log=lambda _: None)
-        counts = launch_counts()
+        counts, frames = launch_counts(), frame_counts()
         m = rep["server_metrics"]
         seen = rep["upsampler_kernel_launches"]
         ticks = m["ticks"] + m.get("graph_warmup_ticks", 0)
+        capacity = serve_soak.soak_settings(device)["capacity"]
         launches_ok = (0 <= seen["bfloat16"] - ticks <= 1 and counts["bfloat16"] >= ticks
-                       if fpt == 1 else not counts["bfloat16"]) and not counts["float32"]
+                       and frames["bfloat16"] == counts["bfloat16"] * capacity * fpt
+                       and not counts["float32"])
         if not rep["ok"] or not launches_ok or len(rep["clients"]) != SOAK_CLIENTS:
             raise AssertionError(f"serve_soak T={fpt} pipeline={pipeline}: launches {counts} "
+                                 f"(frames {frames}) "
                                  f"(metrics {seen}, {ticks} ticks), report {rep}")
         by_path["bfloat16"][f"serve_soak_t{fpt}"] = counts["bfloat16"]
         entries[key] = rep
@@ -2875,7 +3055,8 @@ def serve_soak_phase(device, card, by_path):
             ticks=m["ticks"], underruns=m["underruns"],
             session_dropped_in=m["session_dropped_in"],
             session_dropped_out=m["session_dropped_out"], wall_s=rep["wall_s"],
-            clients_report=rep["clients"], kernel_launches=counts, nvidia_smi=card)
+            clients_report=rep["clients"], kernel_launches=counts, kernel_frames=frames,
+            nvidia_smi=card)
     return entries
 
 
@@ -3640,6 +3821,7 @@ def main() -> int:
     log("build", t0, built=sorted(logs), ptxas=ptxas, sass_hmma=hmma)
 
     entries = {form: kernel_phase(device, form) for form in KERNEL_NAME}
+    chunk_entry = chunk_kernel_phase(device)
     by_path = {form: {} for form in KERNEL_NAME}
     graph_runs = {}
     for config, (_, form) in ENGINE_CONFIGS.items():
@@ -3669,7 +3851,7 @@ def main() -> int:
     quality_phase(device, card)
     train_real_phase(device, card)
     seqpar_phase(device, card)
-    offline_graph_phase(device, card)
+    by_path["bfloat16"]["offline_graph"] = offline_graph_phase(device, card)
     seqpar_graph_phase(device, card)
     by_path["float32"]["parity_graph"] = parity_graph_phase(device, card)
     train_graph_phase(device, card)
@@ -3680,15 +3862,18 @@ def main() -> int:
     serve_soak_phase(device, card, by_path)
     multihost_phase(device, card, by_path)
     mesh_phases(device, card, by_path)
+    chunk_by_path = {name: by_path["bfloat16"].pop(name) for name in CHUNK_KERNEL_PATHS}
     for form, entry in entries.items():
         entry["launches"] = sum(by_path[form].values())
         entry["launches_by_path"] = by_path[form]
         entry["main_path"] = MAIN_CONFIG[form]
+    chunk_entry.update(launches=sum(chunk_by_path.values()), launches_by_path=chunk_by_path,
+                       main_path="serve_soak_t25")
     if "--profile" in sys.argv[1:]:
         for config in ENGINE_CONFIGS:
             profile_phase(device, sys.argv[sys.argv.index("--profile") + 1], config)
 
-    print(json.dumps({"kernels": list(entries.values())}))
+    print(json.dumps({"kernels": [*entries.values(), chunk_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,12 @@
 """Card-only tests of the port: each form of the CUDA kernel against its
 plain PyTorch version (the f32 form of csrc/fused_upsampler.cu and the
 tensor-core bf16 form of csrc/fused_upsampler_bf16.cu), the bf16 form
-against its yardstick (the FFMA bf16 form) and its SASS, the engine
+against its yardstick (the FFMA bf16 form) and its SASS; the bf16 form
+over a chunk of T frames in one launch against the plain version, against
+T chained one-frame launches and every split of its frame axis (bitwise),
+twice on the same inputs (bitwise), a bf16 engine at T = 25 counting one
+launch and capacity x 25 frames a tick, and a chunk under autograd taking
+the stage loop; the engine
 through the kernel against the engine
 through the plain version and against the golden file of the JAX engine,
 in the three configurations, the exact int8 contractions, and a tick
@@ -72,17 +77,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _upsampler_args(b, seed, device, dtype=torch.float32):
-    """Random head arguments; with bf16, h, the carries and the matmul
-    weights in bf16 (rounded from the same f32 draws)."""
-    up, final, h, states, src = _upsampler_args_f32(b, seed, device)
+def _upsampler_args(b, seed, device, dtype=torch.float32, frames=1):
+    """Random head arguments for `frames` frames; with bf16, h, the carries
+    and the matmul weights in bf16 (rounded from the same f32 draws)."""
+    up, final, h, states, src = _upsampler_args_f32(b, seed, device, frames)
     up, final = FU.head_params(up, final, dtype)
     return up, final, h.to(dtype), [s.to(dtype) for s in states], src
 
 
-def _upsampler_args_f32(b, seed, device):
+def _upsampler_args_f32(b, seed, device, frames=1):
     rng = np.random.default_rng(seed)
-    h_shape, state_shapes, src_shapes, stage_shapes, final_shapes = FU.expected_shapes(b)
+    h_shape, state_shapes, src_shapes, stage_shapes, final_shapes = FU.expected_shapes(b, frames)
 
     def n(shape, scale):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
@@ -213,6 +218,153 @@ def test_fused_upsampler_rejects_non_contiguous(cuda_device):
     states[1] = states[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         FU.fused_upsample(up, final, h, states, src)
+
+
+# ---- the bf16 form over a chunk of T frames (the chunk entry point) ----
+
+SPF = (4, 20, 80, 240)  # source rows a frame, by stage
+
+
+def _frames_of(args, f):
+    """The one-frame arguments of frame f of a chunk's, carries aside."""
+    up, final, h, _, src = args
+    return up, final, h[:, f:f + 1].contiguous(), [
+        s[:, f * k:(f + 1) * k].contiguous() for s, k in zip(src, SPF)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [2, 25])
+@pytest.mark.parametrize("b", [16, 40, 256])
+def test_fused_upsampler_bf16_chunk_matches_plain(cuda_device, b, frames):
+    """One launch for a chunk of T frames against the plain version over
+    the T frames, at the one-frame bf16 tolerance; counted as one launch
+    and b * T frames."""
+    args = _upsampler_args(b, b + frames, cuda_device, torch.bfloat16, frames)
+    before = (FU.launches_bf16, FU.frames_bf16, FU.launches, FU.frames)
+    audio, new_states = FU.fused_upsample(*args)
+    torch.cuda.synchronize()
+    assert (FU.launches_bf16, FU.frames_bf16, FU.launches, FU.frames) == (
+        before[0] + 1, before[1] + b * frames, before[2], before[3])
+    want_audio, want_states = FU.fused_upsample_reference(*args)
+    assert audio.shape == (b, frames * 240)
+    torch.testing.assert_close(audio, want_audio, rtol=0, atol=BF16_TOL)
+    for got, want in zip(new_states, want_states):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+# 1 x 40 and 3 x 7: the frame axis split over clusters (`frame_block`),
+# each block after a warm-up frame; 256 x 25: one block of every frame
+@pytest.mark.parametrize("b, frames", [(1, 40), (3, 7), (17, 5), (256, 25)])
+def test_fused_upsampler_bf16_chunk_is_chained_one_frame_launches(cuda_device, b, frames):
+    """A chunk's launch equals T one-frame launches with the carries handed
+    on, bit for bit (the same per-frame arithmetic), and so does every
+    split of its frame axis."""
+    args = _upsampler_args(b, 3 * b + frames, cuda_device, torch.bfloat16, frames)
+    audio, new_states = FU.fused_upsample(*args)
+    parts, carries = [], args[3]
+    for f in range(frames):
+        up, final, h, src = _frames_of(args, f)
+        a, carries = FU.fused_upsample(up, final, h, carries, src)
+        parts.append(a)
+    torch.cuda.synchronize()
+    assert torch.equal(audio, torch.cat(parts, dim=1))
+    for got, want in zip(new_states, carries):
+        assert torch.equal(got, want)
+    import ctypes
+
+    for block in sorted({1, 2, 3, frames}):  # the launch at each block of frames
+        got = FU._check(*args)
+        out = torch.empty_like(audio)
+        outs = [torch.empty_like(s) for s in args[3]]
+        packed = FU._pack(got, out, outs)
+        err = FU._chunk_launcher()(ctypes.addressof(packed), b, frames, block,
+                                   torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(out, audio), block
+        for g, w in zip(outs, new_states):
+            assert torch.equal(g, w), block
+
+
+@pytest.mark.cuda
+def test_fused_upsampler_bf16_chunk_is_deterministic(cuda_device):
+    args = _upsampler_args(100, 8, cuda_device, torch.bfloat16, 25)
+    first = FU.fused_upsample(*args)
+    second = FU.fused_upsample(*args)
+    torch.cuda.synchronize()
+    for got, want in zip([second[0], *second[1]], [first[0], *first[1]]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_f32_form_refuses_a_chunk(cuda_device):
+    # the f32 form takes one frame a launch; a chunk in f32 runs the stage loop
+    with pytest.raises(ValueError, match="one frame"):
+        FU.fused_upsample(*_upsampler_args(4, 0, cuda_device, torch.float32, 3))
+
+
+@pytest.mark.cuda
+def test_bf16_t25_tick_launches_the_kernel_once_for_every_frame(cuda_device):
+    """A bf16 engine at 25 frames a tick: its captured tick records one
+    launch of the tensor-core form and capacity x 25 frames, and each
+    replay counts them (the metrics op reports both); the f32 form, and
+    the engine under autograd, launch nothing."""
+    cap, t = 16, 25
+    e = _engine("slots_bf16", cuda_device, cap=cap, frames_per_tick=t)
+    form = FU.FORMS[torch.bfloat16]
+    assert e._recorded == {(form, torch.bfloat16): 1, (form, torch.bfloat16, "frames"): cap * t}
+    for i in range(cap):
+        e.admit()
+    x = torch.zeros((cap, 480 * t), device=cuda_device)
+    e.tick(x)
+    torch.cuda.synchronize()
+    before = (FU.launches_bf16, FU.frames_bf16, FU.launches, FU.frames)
+    for _ in range(3):
+        e.tick(x)
+    torch.cuda.synchronize()
+    assert (FU.launches_bf16, FU.frames_bf16, FU.launches, FU.frames) == (
+        before[0] + 3, before[1] + 3 * cap * t, before[2], before[3])
+    snap = e.metrics_snapshot()
+    assert snap["upsampler_kernel_frames"]["bfloat16"] == FU.frames_bf16
+    assert snap["upsampler_kernel_launches"]["bfloat16"] == FU.launches_bf16
+
+
+@pytest.mark.cuda
+def test_bf16_chunk_head_under_autograd_keeps_the_stage_loop(cuda_device, monkeypatch):
+    """With a head weight that needs a gradient a bf16 chunk on the card
+    takes the stage loop (the kernel has no backward) and launches
+    nothing; without, the kernel once."""
+    from beatrice_vst_tpu_torch.constants import V20RC0
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+    from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
+
+    wcfg = VoiceConverterConfig.for_version(V20RC0).wg
+    params = W.init(torch.Generator().manual_seed(0), wcfg, cuda_device)
+    b, t = 4, 5
+    state = W.init_state(wcfg, (b,), cuda_device)
+    state["up"] = [s.bfloat16() for s in state["up"]]
+    state["final"] = state["final"].bfloat16()
+    gen = torch.Generator().manual_seed(1)
+    kv = torch.randn(b, 8, wcfg.kv_channels, generator=gen).to(cuda_device)
+    inputs = [torch.randn(b, t, wcfg.phone_channels, generator=gen),
+              torch.randint(0, wcfg.pitch_bins, (b, t), generator=gen),
+              torch.randn(b, t, 4, generator=gen), torch.randn(b, wcfg.hidden, generator=gen)]
+    inputs = [x.to(cuda_device) for x in inputs]
+    stage_loops = []
+    loop = W.upsample_stages
+    monkeypatch.setattr(W, "upsample_stages", lambda *a: stage_loops.append(1) or loop(*a))
+    for grad in (False, True):
+        params["up"][0]["conv"]["w"].requires_grad_(grad)
+        before = (FU.launches_bf16, FU.frames_bf16)
+        with torch.no_grad() if not grad else torch.enable_grad():
+            audio, _ = W.apply(params, wcfg, *inputs, state, compute_dtype=torch.bfloat16,
+                               kv_embedding=kv)
+        torch.cuda.synchronize()
+        assert audio.shape == (b, t * 240) and bool(torch.isfinite(audio).all())
+        launched = (FU.launches_bf16 - before[0], FU.frames_bf16 - before[1])
+        assert (launched, len(stage_loops)) == (((0, 0), 1) if grad else ((1, b * t), 0))
 
 
 def _klatt8(device):
@@ -516,7 +668,8 @@ def test_kernel_counters_count_graph_replays(cuda_device, config):
     torch.cuda.synchronize()
     assert e.counters["graph_warmup_ticks"] == engine_mod.GRAPH_WARMUP_TICKS
     form = FU.FORMS[torch.bfloat16 if config.endswith("bf16") else torch.float32]
-    assert e._recorded == {(form, torch.bfloat16 if config.endswith("bf16") else torch.float32): 1}
+    dtype = torch.bfloat16 if config.endswith("bf16") else torch.float32
+    assert e._recorded == {(form, dtype): 1, (form, dtype, "frames"): e.cfg.capacity}
     assert (getattr(FU, counter), getattr(FU, other)) == (
         before[0] + engine_mod.GRAPH_WARMUP_TICKS, before[1])
     e.admit()

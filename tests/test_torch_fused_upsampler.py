@@ -324,3 +324,211 @@ def test_launch_arguments_are_packed_in_launch_order():
     assert list(args.new_state) == [s.data_ptr() for s in new_states]
     # each call packs its own block
     assert FU._pack(got, audio, new_states) is not args
+
+
+# ---- a chunk of T frames ----
+
+def _chunk_inputs(b, t, seed, dtype):
+    """Head arguments for a chunk of t frames in `dtype` (`_torch_args`'s
+    weights and carries, frame features [b, t, 256]) and the vocoder's own
+    source for them: `source_features` (the head's) and `stage_sources`
+    (the stage loop's) of random pitch bins, voicing, phases and noise
+    counters.  Returns (head args, f32 stage weights, sources, voicing)."""
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+
+    params, _, states, _ = _inputs(b, seed)
+    rng = np.random.default_rng(seed)
+    h = (rng.standard_normal((b, t, CFG.hidden)) * 0.5).astype(np.float32)
+    qp = torch.from_numpy(rng.integers(50, 350, (b, t)))
+    voicing = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    state = {"phase": torch.from_numpy(rng.uniform(0.0, 6.0, b).astype(np.float32)),
+             "noise_counter": torch.from_numpy(rng.integers(0, 1 << 20, b))}
+    wcfg = W.WaveformGeneratorConfig(pitch_bins=CFG.pitch_bins)
+    feats = W.source_features(wcfg, qp, voicing, state)[0]
+    sources = W.stage_sources(wcfg, qp, state)[0]
+    tp = params_from_numpy({"up": params["up"], "final": params["final"]}, "cpu")
+    up, final = FU.head_params(tp["up"], tp["final"], dtype)
+    carries = [torch.from_numpy(s).to(dtype) for s in states]
+    return (up, final, torch.from_numpy(h).to(dtype), carries, feats), tp, sources, voicing
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_reference_over_frames_matches_the_stage_loop(dtype):
+    """The plain head over a chunk of 5 frames (frame by frame, carries
+    chained, the harmonic source features) against `upsample_stages` (the
+    whole chunk per stage, the monomial basis with folded weights), the
+    head the CPU and the f32 card run at T > 1: f32 at 1e-5 (measured 1e-6);
+    bf16 within the roundings the two place apart (the stage loop rounds
+    the sum before the snake and powers the source in bf16; a carry not
+    handed on is off by its own size): each carry within 2^-3 of its
+    largest value at most and 2^-4 in RMS, the audio at 0.15 and 0.025 RMS
+    (the largest over 12 seeds: 10.6 % and 2.8 %, 0.091 and 0.012)."""
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+
+    pdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    b, t = 3, 5
+    args, tp, sources, voicing = _chunk_inputs(b, t, 5, pdt)
+    audio, states = FU.fused_upsample_reference(*args)
+    assert audio.shape == (b, t * 240) and [s.dtype for s in states] == [pdt] * 5
+    wcfg = W.WaveformGeneratorConfig(pitch_bins=CFG.pitch_bins)
+    want_audio, want_up, want_final = W.upsample_stages(
+        wcfg, tp["up"], tp["final"], args[2], args[3][:4], args[3][4], sources, voicing,
+        None if dtype == "f32" else pdt)
+    for got, want in zip(states, [*want_up, want_final]):
+        got, want = got.float(), want.float()
+        if dtype == "f32":
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        else:
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 2.0**-3 * scale
+            assert float((got - want).pow(2).mean().sqrt()) <= 2.0**-4 * scale
+    if dtype == "f32":
+        torch.testing.assert_close(audio, want_audio, rtol=0, atol=1e-5)
+    else:
+        assert float((audio - want_audio).abs().max()) <= 0.15
+        assert float((audio - want_audio).pow(2).mean().sqrt()) <= 0.025
+    assert float(audio.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_is_its_frames_chained(dtype):
+    """A chunk through the wrapper's CPU route (the plain version, nothing
+    counted) equals its frames run one call each with the carries handed
+    on, bitwise: the chunk the kernel is held to on the card."""
+    b, t = 2, 4
+    (up, final, h, carries, feats), *_ = _chunk_inputs(b, t, 6, dtype)
+    before = (FU.launches, FU.launches_bf16, FU.frames, FU.frames_bf16)
+    audio, states = FU.fused_upsample(up, final, h, carries, feats)
+    assert (FU.launches, FU.launches_bf16, FU.frames, FU.frames_bf16) == before
+    parts, chained = [], carries
+    for f in range(t):
+        a, chained = FU.fused_upsample(up, final, h[:, f:f + 1].contiguous(), chained,
+                                       [s.reshape(b, t, -1, FU.N_SRC)[:, f] for s in feats])
+        parts.append(a)
+    assert torch.equal(audio, torch.cat(parts, dim=1))
+    for got, want in zip(states, chained):
+        assert torch.equal(got, want)
+
+
+def test_chunk_shapes_and_bound_extend_one_frame():
+    """`frames=` extends the shapes and the bound; at the one-frame
+    signatures they are as before (the benchmark's frozen copy holds them)."""
+    h, states, src, *_ = FU.expected_shapes(4, 25)
+    assert h == (4, 25, 256) and src == [(4, 100, 9), (4, 500, 9), (4, 2000, 9), (4, 6000, 9)]
+    assert states == FU.expected_shapes(4)[1]
+    assert FU.flops_per_stream(25) == 25 * FU.flops_per_stream()
+    per_stream = FU.bytes_per_call(2, torch.bfloat16) - FU.bytes_per_call(1, torch.bfloat16)
+    carries = 2 * 2 * 2 * 496  # bf16 carries in and out, read and written once a chunk
+    assert (FU.bytes_per_call(1, torch.bfloat16, 25) - FU.bytes_per_call(1, torch.bfloat16)
+            == 24 * (per_stream - carries))
+    # 4,096 streams, 25 frames: 1.44 GB over 3.35 TB/s, above 0.375 TFLOP over 989
+    assert FU.bound_by(4096, torch.bfloat16, 25) == "bytes"
+    assert FU.bound_ms(4096, torch.bfloat16, 25) == pytest.approx(0.4287, rel=1e-3)
+    with pytest.raises(ValueError, match="T >= 1"):
+        params, h1, states1, src1 = _inputs(2, seed=2)
+        up, final, th, ts, tsrc = _torch_args(params, h1, states1, src1)
+        FU.fused_upsample(up, final, th[:, :0], ts, [s[:, :0] for s in tsrc])
+
+
+@pytest.mark.parametrize("b, t, clusters, block", [
+    (4096, 25, 30, 25),  # 256 tiles fill the card: one block of every frame
+    (480, 25, 30, 25),   # 30 tiles: full
+    (256, 25, 30, 25),   # 16 tiles: two blocks would take two waves
+    (240, 25, 30, 13),   # 15 tiles: two blocks of 13 and 12 frames
+    (16, 25, 30, 1),     # one tile: a cluster a frame, each after a warm-up frame
+    (1, 256, 30, 9),     # offline conversion: 29 blocks of 9 frames
+    (1, 2, 30, 1),
+    (1, 5, 0, 5),        # no occupancy: one block
+])
+def test_frame_block_fills_the_card(b, t, clusters, block):
+    assert FU.frame_block(b, t, clusters) == block
+    tiles, blocks = -(-b // FU.TILE), -(-t // block)
+    assert tiles * blocks <= max(tiles, clusters)
+
+
+class _Cfg:
+    upsampler_kernel = True
+
+
+@pytest.mark.parametrize("frames, device, dtype, kernel, grad, split, route", [
+    (1, "cuda", torch.bfloat16, True, False, False, "fused"),      # T = 1: as before
+    (1, "cpu", torch.float32, True, False, False, "fused"),        # (the wrapper's CPU route)
+    (1, "cuda", torch.float32, False, False, False, "reference"),
+    (25, "cuda", torch.bfloat16, True, False, False, "fused"),     # the chunk path on the card
+    (2, "cuda", torch.bfloat16, True, False, False, "fused"),
+    (25, "cuda", torch.float32, True, False, False, "stages"),     # f32 keeps the stage loop
+    (25, "cpu", torch.bfloat16, True, False, False, "stages"),     # the CPU is the JAX package's
+    (25, "cuda", torch.bfloat16, True, True, False, "stages"),     # training: no backward
+    (25, "cuda", torch.bfloat16, True, False, True, "stages"),     # split head weights
+    (25, "cuda", torch.bfloat16, False, False, False, "stages"),   # upsampler_kernel=False
+])
+def test_head_route(frames, device, dtype, kernel, grad, split, route):
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+
+    cfg = _Cfg()
+    cfg.upsampler_kernel = kernel
+    assert W.head_route(cfg, frames, device, dtype, grad, split) == route
+
+
+def test_apply_reads_the_route_from_the_call(monkeypatch):
+    """`apply` on the CPU: at T > 1 the stage loop; it hands head_route
+    what it observes: T, device, dtype, whether an input needs a gradient."""
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+
+    seen = []
+    route = W.head_route
+    monkeypatch.setattr(W, "head_route", lambda *a: seen.append(a[1:]) or route(*a))
+    wcfg = W.WaveformGeneratorConfig(pitch_bins=CFG.pitch_bins)
+    params = W.init(torch.Generator().manual_seed(0), wcfg, "cpu")
+    b, t = 2, 3
+    state = W.init_state(wcfg, (b,), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    inputs = (torch.randn(b, t, wcfg.phone_channels, generator=gen),
+              torch.randint(0, wcfg.pitch_bins, (b, t), generator=gen),
+              torch.randn(b, t, 4, generator=gen), torch.randn(b, wcfg.hidden, generator=gen))
+    with torch.no_grad():
+        W.apply(params, wcfg, *inputs, state)
+    params["up"][0]["conv"]["w"].requires_grad_(True)
+    W.apply(params, wcfg, *inputs, state)
+    assert seen == [(t, "cpu", torch.float32, False, False), (t, "cpu", torch.float32, True, False)]
+
+
+def test_frame_counter_counts_launches_frames_and_replays(monkeypatch):
+    """B*T frames a launch of a form, added once per replay of a graph that
+    recorded it; a yardstick's launches count apart and add no frames."""
+    for name in ("launches", "launches_bf16", "frames", "frames_bf16"):
+        monkeypatch.setattr(FU, name, 0)
+    monkeypatch.setattr(FU, "yardstick_launches", __import__("collections").Counter())
+    bf16, f32 = FU.FORMS[torch.bfloat16], FU.FORMS[torch.float32]
+    FU._count(bf16, torch.bfloat16, 1, 4096 * 25)
+    FU._count(f32, torch.float32, 1, 3072)
+    recorded = {(bf16, torch.bfloat16): 1, (bf16, torch.bfloat16, "frames"): 8 * 25,
+                (FU.YARDSTICKS[torch.bfloat16], torch.bfloat16): 1}
+    FU.count_replay(recorded)
+    FU.count_replay(recorded)
+    assert FU.counts() == {
+        "upsampler_kernel_launches": {"float32": 1, "bfloat16": 3},
+        "upsampler_kernel_frames": {"float32": 3072, "bfloat16": 4096 * 25 + 2 * 8 * 25}}
+    assert dict(FU.yardstick_launches) == {(FU.YARDSTICKS[torch.bfloat16], "torch.bfloat16"): 2}
+
+
+def test_chunk_source_features_are_the_one_frame_builders():
+    """`source_features` at T > 1 builds its planes a feature at a time and
+    interleaves them once; the values are those of the one-frame builder
+    (`_harmonic_features` stacked, the noise beside it), bit for bit."""
+    from beatrice_vst_tpu_torch.models import waveform_generator as W
+
+    wcfg = W.WaveformGeneratorConfig(pitch_bins=CFG.pitch_bins)
+    gen = torch.Generator().manual_seed(3)
+    b, t = 3, 4
+    qp = torch.randint(0, wcfg.pitch_bins, (b, t), generator=gen)
+    voicing = torch.randn(b, t, generator=gen)
+    state = {"phase": torch.rand(b, generator=gen) * 6,
+             "noise_counter": torch.randint(0, 1 << 30, (b,), generator=gen)}
+    feats = W.source_features(wcfg, qp, voicing, state)[0]
+    for got, (phases, noise) in zip(feats, W.stage_sources(wcfg, qp, state)[0]):
+        n = phases.shape[-1] * t
+        harm = W._harmonic_features(phases, voicing, wcfg.n_harmonics)
+        want = torch.cat([harm.reshape(b, n, wcfg.n_harmonics), 0.1 * noise.reshape(b, n, 1)],
+                         dim=-1)
+        assert got.is_contiguous() and torch.equal(got, want)

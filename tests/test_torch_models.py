@@ -141,15 +141,19 @@ def test_waveform_generator(params):
 
 
 def test_waveform_generator_rejects_chunks(params):
-    """The fused head -- the kernel's wrapper -- takes one frame: it
-    refuses the h of a chunk.  The generator sends chunks (T > 1) to the
-    stage loop instead (`test_waveform_generator_chunk`)."""
+    """The fused head -- the kernel's wrapper -- takes a chunk of T frames
+    only with source features of T frames: it refuses the h of a chunk
+    beside one frame's source features.  On the CPU the generator sends
+    chunks (T > 1) to the stage loop (`test_waveform_generator_chunk`)."""
     _, pp = params
     ps = PW.init_state(PCFG.wg, (1,), device="cpu")
     up, final = FU.head_params(pp["wg"]["up"], pp["wg"]["final"], torch.float32)
+    one = [torch.zeros(1, n, 9) for n in (4, 20, 80, 240)]
+    with pytest.raises(ValueError, match="argument 6: shape"):
+        FU.fused_upsample(up, final, torch.zeros(1, 2, 256), [*ps["up"], ps["final"]], one)
     src = [torch.zeros(1, 2 * n, 9) for n in (4, 20, 80, 240)]
-    with pytest.raises(ValueError, match="argument 0: shape"):
-        FU.fused_upsample(up, final, torch.zeros(1, 2, 256), [*ps["up"], ps["final"]], src)
+    audio, _ = FU.fused_upsample(up, final, torch.zeros(1, 2, 256), [*ps["up"], ps["final"]], src)
+    assert audio.shape == (1, 2 * 240)
 
 
 def _wg_chunk_inputs(rng, b, t, phone_channels=128):
