@@ -1,9 +1,11 @@
 """Device selection for the port's entry points, the constants a
-captured CUDA graph keeps alive (`pin`), and the chain's stage marks
-(`mark`, read by the tracer in `runtime/metrics.py`)."""
+captured CUDA graph keeps alive (`pin`), the counts of the hand-written
+kernels' launches (`count_launch`), and the chain's stage marks (`mark`,
+read by the tracer in `runtime/metrics.py`)."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -53,6 +55,62 @@ def pinning():
         yield pins
     finally:
         _capture.pins = None
+
+
+# kernel name -> count(key, n), which adds n to that kernel's process-wide
+# counter `key` (`launch_counter`)
+_launch_counters: dict = {}
+
+
+def launch_counter(kernel: str, count) -> None:
+    """Register how `kernel`'s launches are counted: `count(key, n)` adds
+    n to its counter `key`, at a launch or at each replay of a graph that
+    recorded one."""
+    _launch_counters[kernel] = count
+
+
+def launch_record(kernel: str):
+    """Before a counted launch of `kernel`: None outside a CUDA graph's
+    capture (the launch is counted as it is made); inside one, the record
+    that `recording_launches()` opened on this thread (a capture launches
+    nothing: the graph's replays are counted).  Raises inside a capture
+    outside `recording_launches()`, whose replays would go uncounted."""
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    recorded = getattr(_capture, "launches", None)
+    if recorded is None:
+        raise RuntimeError(f"{kernel} captured into a CUDA graph outside "
+                           "device.recording_launches(): its replays would go uncounted")
+    return recorded
+
+
+def count_launch(recorded, kernel: str, amounts: dict) -> None:
+    """After a launch of `kernel`: add `amounts` (counter key -> n) to its
+    counters, or to the graph's record `recorded` (`launch_record`)."""
+    for key, n in amounts.items():
+        if recorded is None:
+            _launch_counters[kernel](key, n)
+        else:
+            recorded[kernel, key] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around the capture of a CUDA graph on this thread: yields a Counter
+    of the counted kernel launches the graph records, by (kernel, counter
+    key), which go to no count.  Pass it to `count_replay` at each
+    replay."""
+    _capture.launches = recorded = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        _capture.launches = None
+
+
+def count_replay(recorded) -> None:
+    """Count one replay of a graph that recorded `recorded`."""
+    for (kernel, key), n in recorded.items():
+        _launch_counters[kernel](key, n)
 
 
 END = "end"  # the closing mark of a tick's device span

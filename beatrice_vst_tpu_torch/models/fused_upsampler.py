@@ -31,10 +31,9 @@ entry point, T > 1 in one launch of its chunk entry point, the frame axis
 split over clusters where the streams alone do not fill the card:
 `frame_block`).  `launches` and `launches_bf16` count the two forms'
 kernel launches on the card and nothing else; `frames` and `frames_bf16`
-the stream-frames those launches computed (B*T a launch).  A call made
-while a CUDA graph is captured launches nothing: inside `recording()` it
-is counted for that graph, and the graph's owner adds it to the counts
-once per replay (`count_replay`); outside, the wrapper raises.  Two earlier
+the stream-frames those launches computed (B*T a launch); a call made
+while a CUDA graph is captured is counted once per replay of the graph
+(`device.count_launch`, under the kernel name "fused_upsampler").  Two earlier
 kernels stay as yardsticks that `chip_smoke.py` times the forms against,
 reachable only through `_fused_upsample(..., source=...)` and counted in
 `yardstick_launches`: the f32 form's first version
@@ -56,15 +55,14 @@ weights are read once; bf16 at B=4096 and T=25 moves 1.44 GB, 0.43 ms.
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import functools
 import math
-import threading
 
 import torch
 
 from ..constants import OUT_HOP_LENGTH
+from ..device import count_launch, launch_counter, launch_record
 from ..parallel import collectives
 from . import layers
 
@@ -89,9 +87,6 @@ frames_bf16 = 0
 TILE = 16  # streams a cluster of the kernels takes
 # launches of the yardsticks, by (source, dtype)
 yardstick_launches = collections.Counter()
-# the launches recorded into the CUDA graph being captured on this thread
-# (`recording`)
-_capture = threading.local()
 
 
 def _stage_dims():
@@ -454,12 +449,7 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
     if t > 1 and source != FORMS[torch.bfloat16]:
         raise ValueError(f"csrc/{source}.cu takes one frame a launch, not {t}: only the bf16 "
                          "form takes a chunk")
-    recorded = None
-    if torch.cuda.is_current_stream_capturing():
-        recorded = getattr(_capture, "counts", None)
-        if recorded is None:
-            raise RuntimeError("fused_upsample captured into a CUDA graph outside "
-                               "fused_upsampler.recording(): its replays would go uncounted")
+    recorded = launch_record("fused_upsampler")
     audio = torch.empty((b, t * OUT_HOP_LENGTH), dtype=torch.float32, device=h.device)
     new_states = [torch.empty_like(s) for s in states]
     args = _pack(got, audio, new_states)
@@ -472,52 +462,33 @@ def _fused_upsample(up_params, final_params, h, states, src_feats, source=None):
             err = _chunk_launcher()(ctypes.addressof(args), b, t, block, stream)
     if err != 0:
         raise RuntimeError(f"fused_upsampler kernel launch failed: CUDA error {err}")
-    if recorded is not None:
-        recorded[source, h.dtype] += 1
-        if source == FORMS[h.dtype]:
-            recorded[source, h.dtype, "frames"] += b * t
-    else:
-        _count(source, h.dtype, 1, b * t)
+    amounts = {(source, h.dtype): 1}
+    if source == FORMS[h.dtype]:
+        amounts[source, h.dtype, "frames"] = b * t
+    count_launch(recorded, "fused_upsampler", amounts)
     return audio, new_states
 
 
-def _count(source, dtype, n, stream_frames=0):
-    """Add n launches of csrc/<source>.cu's kernel for `dtype` to its count,
-    and for a form (not a yardstick) the stream-frames they computed."""
+def _count(key, n):
+    """Add n to a counter: the launches of csrc/<source>.cu's kernel for
+    dtype at key (source, dtype), a form's stream-frames at (source, dtype,
+    "frames")."""
     global launches, launches_bf16, frames, frames_bf16
+    source, dtype = key[:2]
     if source != FORMS[dtype]:
         yardstick_launches[source, str(dtype)] += n
     elif dtype == torch.float32:
-        launches += n
-        frames += stream_frames
+        if len(key) == 3:
+            frames += n
+        else:
+            launches += n
+    elif len(key) == 3:
+        frames_bf16 += n
     else:
         launches_bf16 += n
-        frames_bf16 += stream_frames
 
 
-@contextlib.contextmanager
-def recording():
-    """Around the capture of a CUDA graph on this thread: yields a Counter
-    of the kernel launches the graph records, by (source, dtype), and of
-    the forms' stream-frames, by (source, dtype, "frames"), which go to no
-    count (capture launches nothing).  Pass it to `count_replay` at each
-    replay."""
-    _capture.counts = counts = collections.Counter()
-    try:
-        yield counts
-    finally:
-        _capture.counts = None
-
-
-def count_replay(recorded) -> None:
-    """Count one replay of a graph that recorded `recorded` (`recording`):
-    each of its kernel launches is a launch on the card, and its frames
-    frames computed."""
-    for key, n in recorded.items():
-        if len(key) == 3:  # (source, dtype, "frames")
-            _count(key[0], key[1], 0, n)
-        else:
-            _count(*key, n)
+launch_counter("fused_upsampler", _count)
 
 
 def counts() -> dict:

@@ -78,6 +78,7 @@ from ..models import chain, fused_upsampler, waveform_generator
 from ..models.chain import VoiceConverterConfig
 from ..models.io import params_from_numpy
 from ..models.layers import quantize_rows
+from ..ops import resample
 from ..ops.gain import gain_process
 from ..ops.resample import input_resampler_48k_to_16k, output_resampler_24k_to_48k
 from ..speakers import morpher
@@ -839,12 +840,14 @@ class StreamEngine:
         return self.tracer.switch(on)
 
     def metrics_snapshot(self) -> dict:
-        """The tick metrics, the engine's and the tracer's counters, and the
+        """The tick metrics, the engine's and the tracer's counters, the
         upsampler kernel's launches and stream-frames in this process by
         form (`upsampler_kernel_launches`, `upsampler_kernel_frames`: the
-        counters of models/fused_upsampler.py; none on the CPU)."""
+        counters of models/fused_upsampler.py), and the resampler kernel's
+        launches and output samples (`resample_kernel_launches`,
+        `resample_kernel_samples`: ops/resample.py); none on the CPU."""
         return {**self.metrics.snapshot(self.n_active), **self.counters,
-                **self.tracer.counters, **fused_upsampler.counts()}
+                **self.tracer.counters, **fused_upsampler.counts(), **resample.counts()}
 
     @property
     def n_active(self) -> int:

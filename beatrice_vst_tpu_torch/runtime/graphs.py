@@ -34,13 +34,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import gc
 import threading
 import time
 
 import torch
 
-from ..device import pinning, recording_marks
-from ..models import fused_upsampler
+from ..device import count_replay, pinning, recording_launches, recording_marks
 from ..parallel.collectives import is_sharded
 
 # calls of a step on scratch tensors before its CUDA graph is captured:
@@ -218,6 +218,34 @@ def _device(tree) -> torch.device:
     return ts[0].device
 
 
+# graphs being captured in this process, and whether automatic garbage
+# collection was on before the first of them (`_collection_paused`)
+_captures = 0
+_collection_was_on = False
+_captures_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collection_paused():
+    """Automatic garbage collection off while a graph is captured: a
+    collection then may free an older graph held in a reference cycle,
+    whose reset is not permitted while a stream captures and invalidates
+    the capture.  (`torch.cuda.graph` collects once as it opens.)"""
+    global _captures, _collection_was_on
+    with _captures_lock:
+        if _captures == 0:
+            _collection_was_on = gc.isenabled()
+            gc.disable()
+        _captures += 1
+    try:
+        yield
+    finally:
+        with _captures_lock:
+            _captures -= 1
+            if _captures == 0 and _collection_was_on:
+                gc.enable()
+
+
 class CompiledStep:
     """`step(*args)` over the static tensors of `args`, which the step
     reads and may write in place (its donated state); the caller copies
@@ -228,14 +256,14 @@ class CompiledStep:
     `args` themselves, for a step that writes only its outputs) on a side
     stream, then the capture with `capture_error_mode="thread_local"`
     (other threads' CUDA work goes on: a ModelHost builds a new engine
-    while the old one ticks), inside `fused_upsampler.recording()` (the
-    kernel launches the graph holds) and `device.pinning()` (the cached
-    constants it reads, which it keeps alive).  A failed warm-up or
+    while the old one ticks), inside `device.recording_launches()` (the
+    counted kernel launches the graph holds) and `device.pinning()` (the
+    cached constants it reads, which it keeps alive), with automatic
+    garbage collection off (`_collection_paused`).  A failed warm-up or
     capture raises.  Each call replays the graph, counts its kernel
-    launches (`fused_upsampler.count_replay`) and returns the step's
-    outputs, which the next call overwrites.  `capture_ms` is the host's
-    time for the warm-up and the capture, the graph's instantiation
-    included.
+    launches (`device.count_replay`) and returns the step's outputs, which
+    the next call overwrites.  `capture_ms` is the host's time for the
+    warm-up and the capture, the graph's instantiation included.
 
     On the CPU each call runs the step op by op over `args`."""
 
@@ -269,7 +297,7 @@ class CompiledStep:
             graph = torch.cuda.CUDAGraph()
             marking = (recording_marks(self.device, capture=True) if marks
                        else contextlib.nullcontext([]))
-            with fused_upsampler.recording() as recorded, pinning() as pins:
+            with recording_launches() as recorded, pinning() as pins, _collection_paused():
                 with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                     with marking as marks:
                         self.outputs = self.step(*self.args)
@@ -295,7 +323,7 @@ class CompiledStep:
         if self.graph is None:
             return self.step(*self.args)
         self.graph.replay()
-        fused_upsampler.count_replay(self.recorded)
+        count_replay(self.recorded)
         return self.outputs
 
 

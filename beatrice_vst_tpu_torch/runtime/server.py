@@ -333,9 +333,11 @@ class StreamingServer:
         for the tick's output on the device) and of each of its parts
         (serve_<part>_p50_ms, serve_<part>_p90_ms for gather, wait_in,
         engine, wait_out, scatter), ticks per second since start() (100 is
-        real time at T = 1), and the upsampler kernel's launches and
+        real time at T = 1), the upsampler kernel's launches and
         stream-frames in this process by form (the engine's
-        `upsampler_kernel_launches`, `upsampler_kernel_frames`)."""
+        `upsampler_kernel_launches`, `upsampler_kernel_frames`) and the
+        resampler kernel's launches and output samples (the engine's
+        `resample_kernel_launches`, `resample_kernel_samples`)."""
         snap = self.engine.metrics_snapshot()
         with self._lock:
             sessions = list(self.sessions.values())

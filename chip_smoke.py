@@ -14,7 +14,8 @@ Phases, each printing one line with its seconds:
                 limit from nvidia-smi.
   2. build   -- builds every CUDA kernel of the port from csrc/ with nvcc
                 (the f32 form csrc/fused_upsampler.cu, the bf16 form
-                csrc/fused_upsampler_bf16.cu on the tensor cores) and the
+                csrc/fused_upsampler_bf16.cu on the tensor cores, the
+                edges' resampler csrc/polyphase_resample.cu) and the
                 yardsticks they are timed against (csrc/fused_upsampler_v1.cu,
                 the f32 form's first version; the FFMA bf16 form in
                 csrc/fused_upsampler.cu), one nvcc each, all at once; each
@@ -43,6 +44,16 @@ Phases, each printing one line with its seconds:
                 device ms warm and cold, the T one-frame launches', the
                 stage loop's it replaces (upsample_stages) and the bound at
                 T frames.
+ 3c. resample_kernel -- the edges' polyphase resampler kernel
+                (csrc/polyphase_resample.cu) at B = 4,096, T = 25 and T = 1
+                (48 -> 16 and 24 -> 48 kHz) and on a 30 s utterance at
+                44.1 kHz (offline's two resamplers, B = 1, in a CUDA
+                graph: whole, and in blocks as the kernel and as the
+                dense product): against the dense product at 2e-5,
+                the new history bitwise; device ms warm and cold behind a
+                device sleep, the dense product's, the cuDNN conv1d
+                design's (engine blocks), the bound (bytes) and the share
+                of it.
   4. graph   -- one line per configuration: the compiled tick (StreamEngine's
                 default jit=True, one CUDA graph replayed per tick) against
                 the eager tick (jit=False) at capacity 256, T = 1, TICKS
@@ -370,7 +381,9 @@ Phases, each printing one line with its seconds:
                 goes in each configuration (torch.profiler; tables and
                 gzipped traces written to DIR).
 Then the kernels line: an entry per form with its one-frame launches,
-and one for the bf16 form's chunk entry point with its launches (the
+one for the resampler kernel with its launches and output samples on the
+paths that check them (graph_*, engine_*, serve_soak_t1, serve_soak_t25,
+offline_graph: launches_by_path), and one for the bf16 form's chunk entry point with its launches (the
 serve soak at T = 25, serve_soak_t25, and offline_graph's bf16
 conversions, offline_graph), each summed over every path that
 drove it, a graph's replays included (the graph phases (eager and graph
@@ -395,6 +408,7 @@ torch.cuda.is_available() is false.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import platform
@@ -430,6 +444,17 @@ CHUNK_KERNEL_CASES = ((256, 25), (1, 256), (4096, 25))
 CHUNK_KERNEL_AT = (4096, 25)
 CHUNK_KERNEL_PATHS = ("serve_soak_t25", "offline_graph")
 CHAINED_REPS = 2  # T one-frame launches a call: 512 at T = 256
+# the edges' polyphase resampler kernel against the dense product: f32
+# sums of at most 97 products of inputs in [-1, 1] in two orders (worst
+# case about 9e-6 a side; a bf16 sum would be off by about 1e-3)
+RESAMPLE_TOL = 2e-5
+RESAMPLE_OFFLINE_S = 30.0  # the offline utterance, 44.1 kHz in and out
+# output samples a stream's tick makes at each frame: 160 at 16 kHz on the
+# way in, 480 at 48 kHz on the way out
+EDGE_SAMPLES = 160 + 480
+# the resampler kernel's launches and output samples on each path that
+# checks them (`check_resample`), for the kernels line
+RESAMPLE_BY_PATH: dict = {}
 # name -> (EngineConfig.realtime keywords, kernel form, engine tolerance
 # against the plain-upsampler engine: the kernel's, carried through the
 # upsampler state)
@@ -872,6 +897,168 @@ def chunk_kernel_phase(device):
     return entry
 
 
+def resample_cases():
+    """(label, batch, resampler, offline samples) of the resample phase: the
+    engine's two edges at B = 4,096 and T = 25 and 1 (offline samples 0:
+    one block), and a 30 s utterance at 44.1 kHz through offline
+    conversion's two resamplers, B = 1 (blocks of `_block_for`)."""
+    from beatrice_vst_tpu_torch.ops import resample as R
+    from beatrice_vst_tpu_torch.runtime.offline import _block_for
+
+    cases = []
+    for t in (25, 1):
+        cases += [(f"48_16_t{t}", 4096, R.input_resampler_48k_to_16k(t), 0),
+                  (f"24_48_t{t}", 4096, R.output_resampler_24k_to_48k(t), 0)]
+    for label, rate_in, rate_out in (("44k1_16_offline", 44100, 16000),
+                                     ("24_44k1_offline", 24000, 44100)):
+        rs = R.make_resampler(rate_in, rate_out, _block_for(rate_in, rate_out))
+        cases.append((label, 1, rs, int(RESAMPLE_OFFLINE_S * rate_in)))
+    return cases
+
+
+def offline_resample_counts(rs, n):
+    """(output samples, output length) of `rs.apply_offline` on n samples
+    on the card (one launch over the signal rounded up to a multiple of
+    M); the causal delay trimmed from the output."""
+    out = (n + (-n) % rs.M) * rs.L // rs.M
+    return out, min(n * rs.L // rs.M, out - rs.delay_in_samples * rs.L // rs.M)
+
+
+def conv1d_weight(rs, device):
+    """`conv1d_block`'s filters [L, 1, K + floor((L-1)*M/L)]: output channel
+    r is phase r, its table row reversed and shifted by floor(r*M/L)."""
+    import torch
+    from beatrice_vst_tpu_torch.ops import resample as R
+
+    table, taps, _ = R.design_polyphase(rs.L, rs.M, rs.taps, rs.cutoff)
+    shift = [r * rs.M // rs.L for r in range(rs.L)]
+    w = np.zeros((rs.L, 1, taps + shift[-1]), np.float32)
+    for r in range(rs.L):
+        w[r, 0, shift[r]:shift[r] + taps] = table[r * rs.M % rs.L, ::-1]
+    return torch.from_numpy(w).to(device)
+
+
+def conv1d_block(rs, w, x, history):
+    """`rs.apply_block` as one cuDNN call, the library design the kernel is
+    timed against: [history | x] through a stride-M conv1d with the L
+    phases as output channels (`conv1d_weight` w), then the channels
+    interleaved."""
+    import torch
+
+    full = torch.cat([history, x], dim=-1)[:, None]
+    y = torch.nn.functional.conv1d(full, w, stride=rs.M)[..., :rs.out_block // rs.L]
+    return y.transpose(1, 2).reshape(x.shape[0], rs.out_block)
+
+
+def resample_kernel_phase(device):
+    """The edges' polyphase resampler kernel (csrc/polyphase_resample.cu) at
+    each of `resample_cases`.  The engine's blocks: one launch against the
+    dense banded product (`Resampler.dense_block`, the CPU's path and the
+    card's before the kernel) at RESAMPLE_TOL, the new history bitwise; device ms
+    with L2 warm and cold, launches behind a device sleep; the dense
+    product's and the cuDNN design's (`conv1d_block`, held to the dense
+    product at RESAMPLE_TOL too) device ms, behind the sleep.  The offline
+    utterance: `apply_offline` captured in a CUDA graph, as offline
+    conversion's step cache runs it: the kernel over the whole signal (the
+    card's path), the kernel in blocks and the dense product in blocks
+    (the card's path before the kernel), each replay timed, the first two bitwise equal
+    and the third within RESAMPLE_TOL.  The bound
+    (`resample.bound_ms`: bytes; offline the whole utterance as one block)
+    and the share of it.  The launch counts are set to 0 at the end.
+    Returns the kernels-line entry (launches added at the end of the
+    run)."""
+    from unittest import mock
+
+    import torch
+    from beatrice_vst_tpu_torch.ops import resample as R
+    from beatrice_vst_tpu_torch.runtime.graphs import CompiledStep
+
+    t0 = time.perf_counter()
+    cycles_per_ms = sleep_cycles_per_ms()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    by_case = []
+    for label, b, rs, n in resample_cases():
+        rng = np.random.default_rng(b + rs.in_block + n)
+        if n:
+            x = torch.from_numpy(rng.uniform(-1, 1, (b, n)).astype(np.float32)).to(device)
+            kernel = CompiledStep(rs.apply_offline, (x,))
+            blocks = CompiledStep(rs.offline_blocks, (x,))
+            with mock.patch.object(R, "polyphase_block", lambda r, xb, hb: r.dense_block(xb, hb)):
+                dense = CompiledStep(rs.offline_blocks, (x,))
+            diff = float((kernel() - dense()).abs().max())
+            new_h_equal, library = torch.equal(kernel(), blocks()), None
+            whole = R.Resampler(rs.L, rs.M, n + (-n) % rs.M, rs.taps, rs.cutoff)
+        else:
+            x = torch.from_numpy(rng.uniform(-1, 1, (b, rs.in_block)).astype(np.float32)).to(
+                device)
+            h = torch.from_numpy(rng.uniform(-1, 1, (b, rs.history_len)).astype(np.float32)).to(
+                device)
+            y, new_h = rs.apply_block(x, h)
+            want_y, want_h = rs.dense_block(x, h)
+            diff = float((y - want_y).abs().max())
+            new_h_equal = torch.equal(new_h, want_h)
+            w = conv1d_weight(rs, device)
+            lib_diff = float((conv1d_block(rs, w, x, h) - want_y).abs().max())
+            if not lib_diff <= RESAMPLE_TOL:
+                raise AssertionError(f"conv1d_block {label} vs dense: max|d| {lib_diff} > "
+                                     f"{RESAMPLE_TOL}")
+            del y, new_h, want_y, want_h
+            kernel = functools.partial(rs.apply_block, x, h)
+            dense = functools.partial(rs.dense_block, x, h)
+            library = functools.partial(conv1d_block, rs, w, x, h)
+            blocks, whole = None, rs
+        if not np.isfinite(diff) or diff > RESAMPLE_TOL or not new_h_equal:
+            raise AssertionError(f"polyphase_resample {label} vs dense: max|d| {diff} > "
+                                 f"{RESAMPLE_TOL}, or the new history (offline: the blocks' "
+                                 "output) differs")
+        call_us = host_us(kernel)
+        warm = device_ms(kernel, KERNEL_REPS, cycles_per_ms, call_us)
+        cold = device_ms(kernel, KERNEL_REPS, cycles_per_ms, call_us, before=flush.zero_)
+        dense_ms = device_ms(dense, PLAIN_REPS, cycles_per_ms, host_us(dense, n=5))
+        library_ms = (device_ms(library, KERNEL_REPS, cycles_per_ms, host_us(library))
+                      if library else None)
+        blocks_ms = (device_ms(blocks, PLAIN_REPS, cycles_per_ms, host_us(blocks, n=5))
+                     if blocks else None)
+        bound = R.bound_ms(whole, b)
+        plan = R.kernel_plan(rs)
+        by_case.append({"case": label, "batch": b, "L": rs.L, "M": rs.M,
+                        "in_block": rs.in_block, "out_block": rs.out_block, "samples_in": n or None,
+                        "taps": rs.history_len + 1, "reps": plan.reps,
+                        "smem_bytes": plan.smem_bytes(rs.history_len + 1),
+                        "max_abs_diff": diff, "ms": warm, "cold_l2_ms": cold,
+                        "host_us_per_call": call_us, "dense_ms": dense_ms, "blocks_ms": blocks_ms,
+                        "conv1d_ms": library_ms, "bound_ms": bound, "bound_by": "bytes",
+                        "share_of_bound": bound / warm, "bytes": R.bytes_per_call(whole, b)})
+        del x, kernel, dense, library, blocks
+    del flush
+    reset_launch_counts()
+    at = {r["case"]: r for r in by_case}
+
+    def engine_tick(key):  # the two edges of a tick at T = 25
+        return at["48_16_t25"][key] + at["24_48_t25"][key]
+
+    entry = {
+        "name": "polyphase_resample",
+        "route": "cuda",
+        "source": "beatrice_vst_tpu_torch/csrc/polyphase_resample.cu",
+        "replaces": None,  # the dense banded product of beatrice_vst_tpu/ops/resample.py
+        "dtype": "float32",
+        "max_abs_err": max(r["max_abs_diff"] for r in by_case),
+        "tol": RESAMPLE_TOL,
+        "ms": engine_tick("ms"),
+        "cold_l2_ms": engine_tick("cold_l2_ms"),
+        "plain": "Resampler.dense_block",
+        "plain_ms": engine_tick("dense_ms"),
+        "bound_ms": engine_tick("bound_ms"),
+        "bound_by": "bytes",
+        "library": "conv1d_block (cuDNN)",
+        "library_ms": engine_tick("conv1d_ms"),
+        "by_case": by_case,
+    }
+    log("resample_kernel", t0, tol=RESAMPLE_TOL, reps=KERNEL_REPS, by_case=by_case)
+    return entry
+
+
 def klatt8(device):
     """The klatt8 weights and speaker bank on the card."""
     from beatrice_vst_tpu_torch.constants import V20RC0
@@ -956,9 +1143,33 @@ def frame_counts():
 
 def reset_launch_counts():
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
+    from beatrice_vst_tpu_torch.ops import resample as R
 
     FU.launches = FU.launches_bf16 = FU.frames = FU.frames_bf16 = 0
     FU.yardstick_launches.clear()
+    R.launches = R.samples = 0
+
+
+def resample_counts():
+    """The resampler kernel's launches and output samples since the counts
+    were last set to 0."""
+    from beatrice_vst_tpu_torch.ops import resample as R
+
+    return {"launches": R.launches, "samples": R.samples}
+
+
+def check_resample(path, launches, samples):
+    """The resampler kernel's counts since they were last set to 0 held to
+    what `path` launches (`launches` launches of `samples` output samples
+    in all), and added to its counts for the kernels line."""
+    got = resample_counts()
+    if got != {"launches": launches, "samples": samples}:
+        raise AssertionError(f"{path}: resampler kernel {got}, expected {launches} launches "
+                             f"of {samples} output samples")
+    kept = RESAMPLE_BY_PATH.setdefault(path, {"launches": 0, "samples": 0})
+    for key in kept:
+        kept[key] += got[key]
+    return got
 
 
 def timed_ticks(engine, audio, ticks, keep=0):
@@ -1110,7 +1321,9 @@ def graph_phase(device, config, card):
     capacity 256, T = 1: an eager engine (jit=False) and a graph engine
     (jit=True, the default) with the same controls, TICKS ticks of the
     same audio in turns, with the launch counts set to 0 just before and
-    read just after (one launch of the form per tick each).  Gate: every
+    read just after (one launch of the form per tick each, and two of the
+    edges' resampler kernel of CAPACITY x EDGE_SAMPLES output samples in
+    all).  Gate: every
     tick's outputs within GRAPH_TOL.  Reported: median and p90 span (CUDA
     events) and host ms per tick of each, the capture's host ms, and each
     engine's peak MiB while it was built (the graph's pool included)
@@ -1136,12 +1349,15 @@ def graph_phase(device, config, card):
     if counts[form] != 2 * TICKS or sum(counts.values()) != 2 * TICKS:
         raise AssertionError(f"graph {config}: kernel launches {counts} in {TICKS} ticks of "
                              f"each engine, expected {2 * TICKS} of the {form} form only")
+    # the two edges a tick of each engine
+    resampled = check_resample(f"graph_{config}", 4 * TICKS, 2 * TICKS * CAPACITY * EDGE_SAMPLES)
     if not finite or quietest <= 1e-3:
         raise AssertionError(f"graph {config}: output not finite or silent ({quietest})")
     if not diff <= GRAPH_TOL:
         raise AssertionError(f"graph {config}: graph vs eager tick: max|d| {diff} > {GRAPH_TOL}")
     log("graph", t0, config=config, kernel_form=form, capacity=CAPACITY, frames_per_tick=1,
-        ticks=TICKS, launches=counts, max_abs_diff_graph_vs_eager=diff, tol=GRAPH_TOL,
+        ticks=TICKS, launches=counts, resampler=resampled, max_abs_diff_graph_vs_eager=diff,
+        tol=GRAPH_TOL,
         **{name: {**tick_stats_ms(spans[name], host[name], WARMUP_TICKS),
                   "build_peak_mib": build_mib[name]} for name in engines},
         capture_ms=engines["graph"].capture_ms,
@@ -1163,7 +1379,8 @@ def graph_profile_phase(device, runs, card):
 
 def engine_phase(device, config):
     """One configuration at capacity 256: TICKS ticks with the launch
-    counts set to 0 just before and read just after; returns the launches
+    counts set to 0 just before and read just after (one launch of its
+    kernel form a tick, two of the resampler kernel); returns the launches
     of its kernel form."""
     import torch
 
@@ -1181,6 +1398,7 @@ def engine_phase(device, config):
     if counts[form] != TICKS or sum(counts.values()) != TICKS:
         raise AssertionError(f"{config}: kernel launches {counts} in {TICKS} ticks, "
                              f"expected {TICKS} of the {form} form only")
+    resampled = check_resample(f"engine_{config}", 2 * TICKS, TICKS * CAPACITY * EDGE_SAMPLES)
     if not finite:
         raise AssertionError(f"{config}: non-finite engine output")
     times = spans[WARMUP_TICKS:]
@@ -1199,7 +1417,7 @@ def engine_phase(device, config):
     if not np.isfinite(diff) or diff > tol:
         raise AssertionError(f"{config}: kernel engine vs plain engine: max|d| {diff} > {tol}")
     log("engine", t0, config=config, kernel_form=form, capacity=CAPACITY, ticks=TICKS,
-        jit=engine.jit, launches=counts, median_tick_ms=median_tick,
+        jit=engine.jit, launches=counts, resampler=resampled, median_tick_ms=median_tick,
         p90_tick_ms=float(np.percentile(times, 90)),
         median_host_ms=float(np.median(host_ms[WARMUP_TICKS:])),
         implied_streams_per_10ms=CAPACITY * 10.0 / median_tick,
@@ -2576,19 +2794,27 @@ def offline_graph_phase(device, card):
     launch the fused upsampler (T > 1 runs the stage loop in f32); the bf16
     ones launch the tensor-core form, a chunk a launch (B x T frames; the
     utterance padded to whole chunks, so every launch of a case takes the
-    same T > 1)."""
+    same T > 1).  Every conversion launches the resampler kernel once for
+    each of its two resamplers (`offline_resample_counts`), in each of
+    graph_vs_eager's three eager calls, three replays and
+    GRAPH_WARMUP_CALLS warm-up calls."""
     import torch
     from beatrice_vst_tpu_torch import golden
     from beatrice_vst_tpu_torch.constants import V20RC0
     from beatrice_vst_tpu_torch.models.chain import VoiceConverterConfig
     from beatrice_vst_tpu_torch.models.io import load_model_dir, params_from_numpy
-    from beatrice_vst_tpu_torch.runtime.offline import ConversionSettings, convert_utterance
+    from beatrice_vst_tpu_torch.ops.resample import make_resampler
+    from beatrice_vst_tpu_torch.runtime.graphs import GRAPH_WARMUP_CALLS
+    from beatrice_vst_tpu_torch.runtime.offline import (ConversionSettings, _block_for,
+                                                        convert_utterance)
 
     t0 = time.perf_counter()
     params, bank = klatt8(device)
     cfg = VoiceConverterConfig.for_version(V20RC0)
     settings = ConversionSettings(**golden.OFFLINE_SETTINGS)
     rate = golden.OFFLINE_RATE
+    rs_in = make_resampler(rate, 16000, _block_for(rate, 16000))
+    rs_out = make_resampler(24000, rate, _block_for(24000, rate))
     cases, launched = {}, {}
     for name, (seconds, chunk, dtype) in OFFLINE_GRAPH_CASES.items():
         sig = golden.offline_signal(seconds=seconds)
@@ -2599,7 +2825,11 @@ def offline_graph_phase(device, card):
                                           compute_dtype=cd, chunk_frames=chunk, device=device,
                                           jit=jit), seconds)
         c, frames = launch_counts(), frame_counts()
-        launched[name] = {**c, "frames": frames}
+        s_in, n16 = offline_resample_counts(rs_in, sig.shape[-1])
+        s_out, _ = offline_resample_counts(rs_out, -(-n16 // 160) * 240)
+        calls = 6 + GRAPH_WARMUP_CALLS
+        got = check_resample("offline_graph", 2 * calls, calls * (s_in + s_out))
+        launched[name] = {**c, "frames": frames, "resampler": got}
         bf16_ok = (c["bfloat16"] > 0 and frames["bfloat16"] % c["bfloat16"] == 0
                    and frames["bfloat16"] // c["bfloat16"] > 1)
         if c["float32"] or c["yardstick_float32"] or c["yardstick_bfloat16"] \
@@ -3021,7 +3251,8 @@ def serve_soak_phase(device, card, by_path):
     script's gate (`ok`); the bf16 form launched once a tick and warm-up
     tick at T = 1 and at T = 25 (within the one tick between the metrics
     read and the counts'), each launch 256 x T stream-frames, the f32 form
-    never."""
+    never; the resampler kernel twice beside each of its launches, with
+    256 x T x EDGE_SAMPLES output samples."""
     from unittest import mock
 
     from beatrice_vst_tpu_torch.scripts import serve_soak
@@ -3047,6 +3278,9 @@ def serve_soak_phase(device, card, by_path):
                                  f"(frames {frames}) "
                                  f"(metrics {seen}, {ticks} ticks), report {rep}")
         by_path["bfloat16"][f"serve_soak_t{fpt}"] = counts["bfloat16"]
+        # the two edges beside each launch of the upsampler, on the same ticks
+        resampled = check_resample(f"serve_soak_t{fpt}", 2 * counts["bfloat16"],
+                                   counts["bfloat16"] * capacity * fpt * EDGE_SAMPLES)
         entries[key] = rep
         log("serve_soak", t0, entry=key, frames_per_tick=fpt, pipeline=pipeline,
             clients=SOAK_CLIENTS, duration_s=SOAK_SECONDS, ok=rep["ok"],
@@ -3056,7 +3290,7 @@ def serve_soak_phase(device, card, by_path):
             session_dropped_in=m["session_dropped_in"],
             session_dropped_out=m["session_dropped_out"], wall_s=rep["wall_s"],
             clients_report=rep["clients"], kernel_launches=counts, kernel_frames=frames,
-            nvidia_smi=card)
+            resampler=resampled, nvidia_smi=card)
     return entries
 
 
@@ -3811,7 +4045,7 @@ def main() -> int:
     t0 = time.perf_counter()
     from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 
-    sources = sorted({*FU.FORMS.values(), *FU.YARDSTICKS.values()})
+    sources = sorted({*FU.FORMS.values(), *FU.YARDSTICKS.values(), "polyphase_resample"})
     logs = cuda_build.build(sources)
     ptxas = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
              for name, text in logs.items()}
@@ -3822,6 +4056,7 @@ def main() -> int:
 
     entries = {form: kernel_phase(device, form) for form in KERNEL_NAME}
     chunk_entry = chunk_kernel_phase(device)
+    resample_entry = resample_kernel_phase(device)
     by_path = {form: {} for form in KERNEL_NAME}
     graph_runs = {}
     for config, (_, form) in ENGINE_CONFIGS.items():
@@ -3869,11 +4104,14 @@ def main() -> int:
         entry["main_path"] = MAIN_CONFIG[form]
     chunk_entry.update(launches=sum(chunk_by_path.values()), launches_by_path=chunk_by_path,
                        main_path="serve_soak_t25")
+    resample_entry.update(launches=sum(c["launches"] for c in RESAMPLE_BY_PATH.values()),
+                          samples=sum(c["samples"] for c in RESAMPLE_BY_PATH.values()),
+                          launches_by_path=RESAMPLE_BY_PATH, main_path="serve_soak_t25")
     if "--profile" in sys.argv[1:]:
         for config in ENGINE_CONFIGS:
             profile_phase(device, sys.argv[sys.argv.index("--profile") + 1], config)
 
-    print(json.dumps({"kernels": [*entries.values(), chunk_entry]}))
+    print(json.dumps({"kernels": [*entries.values(), chunk_entry, resample_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@ package at the 1e-3 gate.  The model is the shallow 2.0.0-rc.0
 configuration of tests/test_seqpar.py with the JAX package's `init`.
 The training steps are in tests/test_torch_compiled_training.py."""
 
+import gc
+
 import numpy as np
 import jax
 import pytest
@@ -291,3 +293,23 @@ def test_parity_compiled_equals_eager_and_jax(model):
                           controls={"pitch_shift": 2.0})
     print(f" port {got}; JAX {jrep}", end="")
     assert jrep.passed
+
+
+def test_collection_stays_paused_while_any_capture_runs():
+    """Automatic garbage collection is off from the first capture's start
+    to the last one's end (captures on two threads overlap), then as it
+    was before."""
+    assert gc.isenabled()
+    with graphs._collection_paused():
+        assert not gc.isenabled()
+        with graphs._collection_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._collection_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

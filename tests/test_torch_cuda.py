@@ -28,7 +28,10 @@ the card, each ticking half the streams, against one process; the
 compiled mesh steps: the tensor-parallel tick on a world-size-1 NCCL group
 (its all-reduces in the graph) equal to its eager twin, jit=True refused on
 a gloo group for that tick, and the NCCL spawner refusing more ranks than
-cards.  They skip
+cards; the edges' polyphase resampler kernel against the dense banded
+product at four rates, four block sizes and three batches, a stream
+carried block by block against one offline launch (bitwise), and its
+launches and samples counted once a replay of the tick graph.  They skip
 where torch.cuda.is_available() is false.
 
 This file imports no JAX, so it also runs on a machine without JAX:
@@ -43,12 +46,14 @@ at atol 1e-3, the bf16 engine by the envelope of
 `beatrice_vst_tpu_torch.golden`.
 """
 
+import gc
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from beatrice_vst_tpu_torch import device as device_mod
 from beatrice_vst_tpu_torch import golden
 from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 from beatrice_vst_tpu_torch.models import layers
@@ -314,7 +319,11 @@ def test_bf16_t25_tick_launches_the_kernel_once_for_every_frame(cuda_device):
     cap, t = 16, 25
     e = _engine("slots_bf16", cuda_device, cap=cap, frames_per_tick=t)
     form = FU.FORMS[torch.bfloat16]
-    assert e._recorded == {(form, torch.bfloat16): 1, (form, torch.bfloat16, "frames"): cap * t}
+    # the graph's record, by kernel: the edges' resampler launches twice a tick
+    assert e._recorded == {("fused_upsampler", (form, torch.bfloat16)): 1,
+                           ("fused_upsampler", (form, torch.bfloat16, "frames")): cap * t,
+                           ("polyphase_resample", "launches"): 2,
+                           ("polyphase_resample", "samples"): cap * (160 + 480) * t}
     for i in range(cap):
         e.admit()
     x = torch.zeros((cap, 480 * t), device=cuda_device)
@@ -669,7 +678,10 @@ def test_kernel_counters_count_graph_replays(cuda_device, config):
     assert e.counters["graph_warmup_ticks"] == engine_mod.GRAPH_WARMUP_TICKS
     form = FU.FORMS[torch.bfloat16 if config.endswith("bf16") else torch.float32]
     dtype = torch.bfloat16 if config.endswith("bf16") else torch.float32
-    assert e._recorded == {(form, dtype): 1, (form, dtype, "frames"): e.cfg.capacity}
+    assert e._recorded == {("fused_upsampler", (form, dtype)): 1,
+                           ("fused_upsampler", (form, dtype, "frames")): e.cfg.capacity,
+                           ("polyphase_resample", "launches"): 2,
+                           ("polyphase_resample", "samples"): e.cfg.capacity * (160 + 480)}
     assert (getattr(FU, counter), getattr(FU, other)) == (
         before[0] + engine_mod.GRAPH_WARMUP_TICKS, before[1])
     e.admit()
@@ -1359,6 +1371,28 @@ def test_underruns_count_a_tick_over_its_budget_on_the_cards_clock(cuda_device):
 
 
 @pytest.mark.cuda
+def test_a_capture_runs_without_automatic_garbage_collection(cuda_device):
+    """A collection during a capture may free an older graph held in a
+    reference cycle, whose reset invalidates the capture: the step's
+    warm-up calls run with collection on, its capture with it off, and
+    the step turns it back on."""
+    from beatrice_vst_tpu_torch.runtime import graphs
+
+    seen = []
+
+    def step(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    x = torch.arange(4.0, device=cuda_device)
+    assert gc.isenabled()
+    compiled = graphs.CompiledStep(step, (x,))
+    assert seen == [True] * graphs.GRAPH_WARMUP_CALLS + [False]
+    assert gc.isenabled()
+    assert torch.equal(compiled(), x * 2)
+
+
+@pytest.mark.cuda
 def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
     """A synchronising step (a copy to the host) warms up, as eager code
     may, but cannot be captured: building the engine raises and no engine
@@ -1377,7 +1411,7 @@ def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
     before = (FU.launches, FU.launches_bf16)
     with pytest.raises(RuntimeError):
         _engine("slots_f32", cuda_device)
-    assert FU._capture.counts is None
+    assert device_mod._capture.launches is None and gc.isenabled()
     assert (FU.launches, FU.launches_bf16) == (before[0] + engine_mod.GRAPH_WARMUP_TICKS,
                                                before[1])
     monkeypatch.undo()
@@ -1385,3 +1419,119 @@ def test_a_capture_that_cannot_succeed_raises(cuda_device, monkeypatch):
     e.admit()
     out = e.tick(torch.zeros((e.cfg.capacity, 480), device=cuda_device))
     assert bool(torch.isfinite(out).all())
+
+
+# ---- the edges' polyphase resampler kernel (csrc/polyphase_resample.cu) ----
+
+# f32 sums of at most K = 97 products (|w| summing to under 1.5) of inputs
+# in [-1, 1], in the kernel's order and in the dense GEMM's: the worst-case
+# rounding bound is about K x 2^-24 x 1.5 = 9e-6 a side; a sum in bf16
+# would be off by about 2^-9 of |y| (1e-3 at |y| = 0.5), 50x this
+RESAMPLE_TOL = 2e-5
+# (L, M): the engine's 48 -> 16 and 24 -> 48 kHz, 48 <-> 44.1 kHz
+RESAMPLE_RATES = [(1, 3), (2, 1), (160, 147), (147, 160)]
+
+
+def _resample_blocks(L, M):
+    """in_block for T = 1, 25 and 256 frames of 10 ms at the input rate
+    (48 kHz, 24 kHz for the output edge, 44.1 kHz for 160/147), and an
+    offline tail: a block shorter than the history."""
+    rate = {(1, 3): 480, (2, 1): 240, (160, 147): 441, (147, 160): 480}[(L, M)]
+    tail = {(1, 3): 30, (2, 1): 7, (160, 147): 147, (147, 160): 160}[(L, M)]
+    return {"t1": rate, "t25": 25 * rate, "t256": 256 * rate, "tail": tail}
+
+
+def _uniform(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 256, 4096])
+@pytest.mark.parametrize("block", ["t1", "t25", "t256", "tail"])
+@pytest.mark.parametrize("L, M", RESAMPLE_RATES)
+def test_polyphase_kernel_matches_the_dense_product(cuda_device, L, M, block, b):
+    """One launch, counted with its output samples, against the dense
+    banded product (`dense_block`) on the same card; the new history
+    bitwise."""
+    from beatrice_vst_tpu_torch.ops import resample as R
+
+    rs = R.Resampler(L=L, M=M, in_block=_resample_blocks(L, M)[block], cutoff=0.99)
+    x = _uniform((b, rs.in_block), b + rs.in_block, cuda_device)
+    h = _uniform((b, rs.history_len), b, cuda_device)
+    launches, samples = R.launches, R.samples
+    y, new_h = rs.apply_block(x, h)
+    torch.cuda.synchronize()
+    assert (R.launches, R.samples) == (launches + 1, samples + b * rs.out_block)
+    want_y, want_h = rs.dense_block(x, h)
+    assert y.shape == want_y.shape and new_h.shape == want_h.shape
+    torch.testing.assert_close(y, want_y, rtol=0, atol=RESAMPLE_TOL)
+    assert torch.equal(new_h, want_h)
+    assert torch.equal(rs.apply_block(x, h)[0], y)  # the same sums each launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L, M", RESAMPLE_RATES)
+def test_polyphase_stream_carried_block_by_block_equals_offline(cuda_device, L, M):
+    """A stream carried block by block through the kernel equals
+    `apply_offline` over the whole signal (one launch) and in blocks (a
+    launch a block) bitwise, and the dense product's offline conversion
+    within the tolerance."""
+    from beatrice_vst_tpu_torch.ops import resample as R
+
+    rs = R.Resampler(L=L, M=M, in_block=_resample_blocks(L, M)["t1"], cutoff=0.99)
+    blocks = 40
+    x = _uniform((3, blocks * rs.in_block), 7, cuda_device)
+    state, parts = rs.init_state((3,), cuda_device), []
+    for i in range(blocks):
+        y, state = rs.apply_block(x[:, i * rs.in_block:(i + 1) * rs.in_block], state)
+        parts.append(y)
+    lead = rs.delay_in_samples * L // M
+    n_out = x.shape[-1] * L // M
+    streamed = torch.cat(parts, dim=-1)[:, lead:lead + n_out]
+    launches = R.launches
+    whole = rs.apply_offline(x)
+    torch.cuda.synchronize()
+    assert R.launches == launches + 1
+    assert whole.shape == (3, n_out - lead) == streamed.shape
+    assert torch.equal(whole, streamed)
+    assert torch.equal(rs.offline_blocks(x), whole)
+    torch.cuda.synchronize()
+    assert R.launches == launches + 1 + blocks
+    torch.testing.assert_close(whole.cpu(), rs.apply_offline(x.cpu()), rtol=0,
+                               atol=RESAMPLE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames_per_tick", [1, 25])
+def test_resample_counters_count_graph_replays(cuda_device, frames_per_tick):
+    """The tick graph records the two edges' launches and counts none; its
+    warm-up ticks launch them, every replay counts them once, and the
+    engine's metrics show the counts; the graph's output equals the eager
+    tick's bitwise."""
+    import beatrice_vst_tpu_torch.runtime.engine as engine_mod
+    from beatrice_vst_tpu_torch.ops import resample as R
+
+    cap, t = 8, frames_per_tick
+    per_tick = cap * (160 * t + 480 * t)
+    before = (R.launches, R.samples)
+    e = _engine("slots_f32", cuda_device, cap=cap, frames_per_tick=t)
+    eager = _engine("slots_f32", cuda_device, cap=cap, frames_per_tick=t, jit=False)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in e._graph.step.recorded.items() if k[0] == "polyphase_resample"} \
+        == {("polyphase_resample", "launches"): 2, ("polyphase_resample", "samples"): per_tick}
+    warm = engine_mod.GRAPH_WARMUP_TICKS
+    assert (R.launches, R.samples) == (before[0] + 2 * warm, before[1] + warm * per_tick)
+    for engine in (e, eager):
+        for i in range(cap):
+            engine.admit()
+            engine.set_control(i, "target_speaker", i)
+    x = _uniform((5, cap, 480 * t), 11, cuda_device) * 0.1
+    before = (R.launches, R.samples)
+    for k in range(5):
+        assert torch.equal(e.tick(x[k]), eager.tick(x[k]))
+    torch.cuda.synchronize()
+    assert (R.launches, R.samples) == (before[0] + 20, before[1] + 10 * per_tick)
+    snap = e.metrics_snapshot()
+    assert (snap["resample_kernel_launches"], snap["resample_kernel_samples"]) == (
+        R.launches, R.samples)

@@ -26,6 +26,7 @@ from beatrice_vst_tpu.models.io import load_model_dir
 from beatrice_vst_tpu.runtime.engine import EngineConfig as JEngineConfig
 from beatrice_vst_tpu.runtime.engine import StreamEngine as JStreamEngine
 from beatrice_vst_tpu.runtime.handle import StreamHandle as JStreamHandle
+from beatrice_vst_tpu_torch import device as device_mod
 from beatrice_vst_tpu_torch import golden
 from beatrice_vst_tpu_torch.constants import V20RC0
 from beatrice_vst_tpu_torch.models import fused_upsampler as FU
@@ -195,18 +196,21 @@ def test_model_host_hands_jit_to_its_engines(jit):
 
 def test_replays_count_the_launches_their_capture_recorded(monkeypatch):
     """The launch counters count a replayed graph's kernel launches by
-    form: `recording` collects what a capture records (and nothing goes to
-    the counters), `count_replay` adds it once per replay."""
+    form: `recording_launches` collects what a capture records (and
+    nothing goes to the counters), `count_replay` adds it once per
+    replay."""
     monkeypatch.setattr(FU, "launches", 5)
     monkeypatch.setattr(FU, "launches_bf16", 7)
     monkeypatch.setattr(FU, "yardstick_launches", collections.Counter())
-    with FU.recording() as recorded:
-        assert FU._capture.counts is recorded and not recorded
-        recorded["fused_upsampler", torch.float32] += 1
-    assert FU._capture.counts is None
+    with device_mod.recording_launches() as recorded:
+        assert device_mod._capture.launches is recorded and not recorded
+        device_mod.count_launch(recorded, "fused_upsampler",
+                                {("fused_upsampler", torch.float32): 1})
+    assert device_mod._capture.launches is None
+    assert (FU.launches, FU.launches_bf16) == (5, 7)
     for _ in range(3):
-        FU.count_replay(recorded)
-    FU.count_replay({("fused_upsampler_bf16", torch.bfloat16): 2,
-                     ("fused_upsampler", torch.bfloat16): 1})
+        device_mod.count_replay(recorded)
+    device_mod.count_replay({("fused_upsampler", ("fused_upsampler_bf16", torch.bfloat16)): 2,
+                             ("fused_upsampler", ("fused_upsampler", torch.bfloat16)): 1})
     assert (FU.launches, FU.launches_bf16) == (8, 9)
     assert FU.yardstick_launches == {("fused_upsampler", "torch.bfloat16"): 1}

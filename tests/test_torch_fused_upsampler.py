@@ -25,6 +25,7 @@ from beatrice_vst_tpu.models import waveform_generator as JW
 from beatrice_vst_tpu.models.chain import VoiceConverterConfig
 from beatrice_vst_tpu.models.pallas_upsampler import fused_upsample as pallas_fused_upsample
 from beatrice_vst_tpu_torch import cuda_build
+from beatrice_vst_tpu_torch import device as device_mod
 from beatrice_vst_tpu_torch.models import fused_upsampler as FU
 from beatrice_vst_tpu_torch.models.io import params_from_numpy
 
@@ -500,12 +501,15 @@ def test_frame_counter_counts_launches_frames_and_replays(monkeypatch):
         monkeypatch.setattr(FU, name, 0)
     monkeypatch.setattr(FU, "yardstick_launches", __import__("collections").Counter())
     bf16, f32 = FU.FORMS[torch.bfloat16], FU.FORMS[torch.float32]
-    FU._count(bf16, torch.bfloat16, 1, 4096 * 25)
-    FU._count(f32, torch.float32, 1, 3072)
-    recorded = {(bf16, torch.bfloat16): 1, (bf16, torch.bfloat16, "frames"): 8 * 25,
-                (FU.YARDSTICKS[torch.bfloat16], torch.bfloat16): 1}
-    FU.count_replay(recorded)
-    FU.count_replay(recorded)
+    device_mod.count_launch(None, "fused_upsampler", {(bf16, torch.bfloat16): 1,
+                                                      (bf16, torch.bfloat16, "frames"): 4096 * 25})
+    device_mod.count_launch(None, "fused_upsampler", {(f32, torch.float32): 1,
+                                                      (f32, torch.float32, "frames"): 3072})
+    recorded = {("fused_upsampler", (bf16, torch.bfloat16)): 1,
+                ("fused_upsampler", (bf16, torch.bfloat16, "frames")): 8 * 25,
+                ("fused_upsampler", (FU.YARDSTICKS[torch.bfloat16], torch.bfloat16)): 1}
+    device_mod.count_replay(recorded)
+    device_mod.count_replay(recorded)
     assert FU.counts() == {
         "upsampler_kernel_launches": {"float32": 1, "bfloat16": 3},
         "upsampler_kernel_frames": {"float32": 3072, "bfloat16": 4096 * 25 + 2 * 8 * 25}}

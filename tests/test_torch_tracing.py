@@ -233,7 +233,8 @@ def test_server_metrics_keep_their_keys_and_add_the_parts(klatt8_port):
     assert e.tracer.dump()["spans"] == []
     for key in ("ticks", "streams_active", "frames_total", "audio_seconds_per_s", "tick_p50_ms",
                 "tick_p99_ms", "underruns", "session_underruns", "session_dropped_in",
-                "session_dropped_out", "upsampler_kernel_launches", "upsampler_kernel_frames"):
+                "session_dropped_out", "upsampler_kernel_launches", "upsampler_kernel_frames",
+                "resample_kernel_launches", "resample_kernel_samples"):
         assert key in m, key
     assert m["tick_clock"] == "host" and "audio_seconds_total" not in m
 
